@@ -31,8 +31,8 @@ Two data-path optimizations ride on the delta manifests:
     on host — dirty detection costs a device reduction plus a tiny host
     compare instead of a full host re-hash of every leaf per round.
   * delta codecs — dirty chunks are run through a per-leaf codec
-    (``repro_torch.checkpoint.codecs``; only ``none`` is ported so far)
-    before storage, so the wire carries the *encoded* bytes.  Parent-
+    (``repro_torch.checkpoint.codecs``: ``none`` / ``xor_rle`` /
+    ``int8``) before storage, so the wire carries the *encoded* bytes.  Parent-
     relative codecs record the image (``pim``) they encoded against;
     pulls invert the codec chain back to raw bytes.
 
@@ -57,6 +57,7 @@ import torch
 
 from repro_torch import tree as _tree
 from repro_torch.checkpoint import codecs as _codecs
+from repro_torch.checkpoint import fingerprint as _fingerprint
 from repro_torch.checkpoint.fingerprint import leaf_fingerprints
 
 CHUNK_BYTES = 4 * 1024 * 1024
@@ -143,16 +144,6 @@ def _leaf_meta(leaf) -> Tuple[str, Tuple[int, ...], int]:
     return arr.dtype.name, tuple(arr.shape), int(arr.nbytes)
 
 
-def _leaf_raw(leaf) -> bytes:
-    """C-order raw bytes of the leaf (device->host transfer happens here,
-    and only for leaves with at least one dirty chunk)."""
-    if isinstance(leaf, torch.Tensor):
-        # a byte view: bfloat16 has no numpy dtype, and .numpy() of it fails
-        flat = leaf.detach().contiguous().reshape(-1)
-        return flat.view(torch.uint8).cpu().numpy().tobytes()
-    return np.asarray(leaf).tobytes()
-
-
 class Registry:
     """The artifact registry: named state trees -> immutable images."""
 
@@ -184,6 +175,37 @@ class Registry:
             return None
         return ent
 
+    def _fused_leaf(self, leaf, codec_name: str, dtype: str, nbytes: int,
+                    parent: Optional[str], name: str, i: int, n: int,
+                    memo: Dict[tuple, bytes]
+                    ) -> Optional[_codecs.FusedLeafEncoding]:
+        """A fused fingerprint+encode pass for this leaf (the CUDA codec
+        kernels for a CUDA tensor), or None when it doesn't apply and the
+        two-pass flow (device fingerprints, host codecs) runs instead.
+        Outputs are bit/byte-identical either way; only the number of
+        reads over the state differs."""
+        if codec_name not in ("xor_rle", "int8") or not nbytes:
+            return None
+        if _codecs.codec_backend() != "kernel":
+            return None
+        if not _fingerprint.supports_chunk_bytes(self.chunk_bytes):
+            return None
+        if codec_name == "int8" and dtype != "float32":
+            # the int8 kernel bitcasts the 32-bit word view straight to
+            # f32; other float dtypes take the host quantizer's astype path
+            return None
+        arr = _fingerprint.normalize_leaf(leaf)
+        if arr is None:
+            return None
+        if (arr.numel() if isinstance(arr, torch.Tensor) else arr.size) == 0:
+            return None
+        parent_buf = b"".join(
+            self._chunk_raw(parent, name, i, c, memo=memo)
+            for c in range(n))
+        return _codecs.FusedLeafEncoding(arr, parent_buf, codec_name,
+                                         _resolve_dtype(dtype),
+                                         self.chunk_bytes)
+
     def _push(self, trees: Dict[str, Any], meta: Optional[dict],
               tag: Optional[str], parent: Optional[str], *,
               compression: CompressionSpec = "none",
@@ -212,7 +234,15 @@ class Registry:
                 codec_name = _codecs.resolve_compression(
                     compression, name, _resolve_dtype(dtype),
                     pleaf is not None, lossy_ok, chunk_bytes=cb)
-                fps = leaf_fingerprints(leaf, cb) if fingerprints else None
+                fenc = (self._fused_leaf(leaf, codec_name, dtype, nbytes,
+                                         parent, name, i, n,
+                                         parent_raw_memo)
+                        if fingerprints else None)
+                if fenc is not None:
+                    fps = fenc.fps
+                else:
+                    fps = (leaf_fingerprints(leaf, cb)
+                           if fingerprints else None)
                 if fps is not None:
                     fp_bytes += nbytes
                 fp_list = (None if fps is None
@@ -235,7 +265,12 @@ class Registry:
                     fp_clean += n
                     chunks = [dict(ch) for ch in pleaf["chunks"]]
                 else:
-                    data = _leaf_raw(leaf) if nbytes else b""
+                    # in fused mode the leaf was already read (and
+                    # encoded) on its device; serialization happens lazily
+                    # only for incompressible raw-fallback chunks
+                    data = (b"" if fenc is not None
+                            else _codecs.leaf_raw(leaf) if nbytes
+                            else b"")
                     codec = _codecs.get_codec(codec_name)
                     for c in range(n):
                         seg_len = min(cb, nbytes - c * cb)
@@ -247,15 +282,20 @@ class Registry:
                         if codec_name == "none":
                             blob = data[c * cb: (c + 1) * cb]
                         else:
-                            parent_raw = self._chunk_raw(
-                                parent, name, i, c, memo=parent_raw_memo)
-                            blob = codec.encode(
-                                data[c * cb: (c + 1) * cb],
-                                parent_raw, _resolve_dtype(dtype))
+                            if fenc is not None:
+                                blob = fenc.blob(c)
+                            else:
+                                parent_raw = self._chunk_raw(
+                                    parent, name, i, c,
+                                    memo=parent_raw_memo)
+                                blob = codec.encode(
+                                    data[c * cb: (c + 1) * cb],
+                                    parent_raw, _resolve_dtype(dtype))
                             enc_raw += seg_len
                             if len(blob) >= seg_len:
                                 # incompressible: store raw
-                                blob = data[c * cb: (c + 1) * cb]
+                                blob = (fenc.raw_seg(c) if fenc is not None
+                                        else data[c * cb: (c + 1) * cb])
                             else:
                                 entry["enc"] = codec_name
                                 entry["pim"] = parent

@@ -30,3 +30,14 @@ from repro_torch.cluster.faults import (  # noqa: F401
     make_schedule,
     parse_fault,
 )
+
+
+def __getattr__(name):
+    # lazy: controller pulls in repro_torch.core (orchestrator, policy) — an
+    # eager import here would cycle through core/__init__ back into this
+    # package before it finishes initialising
+    if name in ("RebalanceConfig", "RebalanceController",
+                "run_rebalance_scenario"):
+        from repro_torch.cluster import controller
+        return getattr(controller, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -27,9 +27,14 @@
 // -inf.  A masked slot would add exp(NEG_INF - m) = 0 once m is a real
 // score, so skipping it changes nothing, and a split whose keys are all
 // masked ends with (m, l, acc) = (NEG_INF, 0, 0), which the
-// combine weighs by exp(NEG_INF - M) = 0.  With no valid slot at all the
-// kernel returns 0; attn_decode writes the current slot before attention,
-// so it never asks for that.
+// combine weighs by exp(NEG_INF - M) = 0.  A split with a valid slot ends
+// with l >= 1, so the combined L is 0 exactly when the (batch row, kv
+// head) has no valid slot at all.  There every score of the reference is
+// NEG_INF and its softmax is uniform: the combine kernel then returns the
+// mean of V over all S slots, sum_s (1/S) * v[s] in slot order with 1/S
+// rounded to the cache type, as the plain version computes it.  The
+// model never asks for that (attn_decode writes the current slot before
+// attention), so that slow loop costs nothing on the main path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -151,17 +156,31 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // One block per (batch row, query head): combine the splits in order.
+// v [B, S, Hkv, D] is read only for a row with no valid slot.
 template <typename T>
 __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
                                       const float* __restrict__ part_ml,
-                                      T* __restrict__ out, int D,
-                                      int n_split) {
+                                      const T* __restrict__ v,
+                                      T* __restrict__ out, int S, int H,
+                                      int Hkv, int D, int n_split) {
   const size_t bh = blockIdx.x;
   const float* ml = part_ml + bh * n_split * 2;
   float M = kNegInf;
   for (int i = 0; i < n_split; ++i) M = fmaxf(M, ml[2 * i]);
   float L = 0.f;
   for (int i = 0; i < n_split; ++i) L += ml[2 * i + 1] * expf(ml[2 * i] - M);
+  if (L == 0.f) {  // no valid slot: uniform softmax, the mean of V
+    const size_t b = bh / H;
+    const int kvh = static_cast<int>(bh % H) / (H / Hkv);
+    const float p = to_f32(from_f32<T>(1.f / static_cast<float>(S)));
+    for (int d = threadIdx.x; d < D; d += blockDim.x) {
+      float A = 0.f;
+      for (int s = 0; s < S; ++s)
+        A = fmaf(p, to_f32(v[((b * S + s) * Hkv + kvh) * D + d]), A);
+      out[bh * D + d] = from_f32<T>(A);
+    }
+    return;
+  }
   const float denom = fmaxf(L, 1e-37f);
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
     float A = 0.f;
@@ -184,7 +203,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       D, split_len, n_split, scale);
   const int threads = D <= 32 ? 32 : (D <= 64 ? 64 : 128);
   decode_combine_kernel<T><<<B * H, threads, 0, stream>>>(
-      part_acc, part_ml, static_cast<T*>(out), D, n_split);
+      part_acc, part_ml, static_cast<const T*>(v), static_cast<T*>(out), S,
+      H, Hkv, D, n_split);
   return cudaGetLastError();
 }
 

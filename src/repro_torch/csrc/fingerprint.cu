@@ -4,9 +4,9 @@
 // (pallas_call body _fp_kernel).  For words [C, R, 128] (uint32 bits) it
 // computes, for each chunk c and lane j,
 //     out[c, j] = sum_r w[c, r, j] * (mix32((r + 1) * 0x9E3779B1) | 1)
-// with wrapping uint32 arithmetic.  Modular addition is associative and
-// commutative, so any reduction order gives the same bits as the
-// reference.
+// with wrapping uint32 arithmetic (csrc/fingerprint.cuh).  Modular
+// addition is associative and commutative, so any reduction order gives
+// the same bits as the reference.
 //
 // What bounds it: bytes.  The kernel reads each word once and does two
 // integer operations on it.  A 4 MiB KV leaf of the paper consumer (one
@@ -22,26 +22,13 @@
 // warps in shared memory and adds its 128 lane sums to the output with
 // atomicAdd, which is exact for uint32.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "fingerprint.cuh"
 
 namespace {
 
-constexpr int kLanes = 128;
 constexpr int kThreads = 256;  // 8 warps; a warp covers the 128 lanes of a row
 constexpr int kRowSteps = kThreads / 32;
 constexpr int kRowsPerBlock = 256;
-constexpr uint32_t kGold = 0x9E3779B1u;
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
 
 // words [C, R, 128] as uint4 [C, R, 32]; out [C, 128], zeroed.
 __global__ void __launch_bounds__(kThreads)
@@ -53,32 +40,10 @@ fingerprint_lanes_kernel(const uint4* __restrict__ words,
   const int r0 = blockIdx.x * kRowsPerBlock;
   const int r1 = min(R, r0 + kRowsPerBlock);
   const uint4* base = words + (size_t)c * R * (kLanes / 4);
-  uint32_t a0 = 0, a1 = 0, a2 = 0, a3 = 0;
-  for (int r = r0 + step; r < r1; r += kRowSteps) {
-    const uint32_t w = mix32(static_cast<uint32_t>(r + 1) * kGold) | 1u;
-    const uint4 x = base[(size_t)r * (kLanes / 4) + quad];
-    a0 += x.x * w;
-    a1 += x.y * w;
-    a2 += x.z * w;
-    a3 += x.w * w;
-  }
-  __shared__ uint4 part[kRowSteps][32];
-  part[step][quad] = make_uint4(a0, a1, a2, a3);
-  __syncthreads();
-  if (step == 0) {
-    for (int s = 1; s < kRowSteps; ++s) {
-      const uint4 p = part[s][quad];
-      a0 += p.x;
-      a1 += p.y;
-      a2 += p.z;
-      a3 += p.w;
-    }
-    uint32_t* o = out + (size_t)c * kLanes + 4 * quad;
-    atomicAdd(o + 0, a0);
-    atomicAdd(o + 1, a1);
-    atomicAdd(o + 2, a2);
-    atomicAdd(o + 3, a3);
-  }
+  uint4 acc = make_uint4(0, 0, 0, 0);
+  for (int r = r0 + step; r < r1; r += kRowSteps)
+    add_weighted(acc, base[(size_t)r * (kLanes / 4) + quad], row_weight(r));
+  block_add_lanes<kRowSteps>(acc, out + (size_t)c * kLanes);
 }
 
 }  // namespace

@@ -8,6 +8,9 @@ version.
 """
 from __future__ import annotations
 
+import numpy as np
+
+from repro_torch.kernels import codec as _ck
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import fingerprint as _fp
 from repro_torch.kernels import ref
@@ -34,3 +37,45 @@ def chunk_fingerprint(x, chunk_bytes: int):
     else:
         lanes = _fp.fingerprint_lanes_ref(words)
     return _fp.collapse_lanes(lanes)
+
+
+def _codec_words(cur, parent_raw: bytes, chunk_bytes: int):
+    """Both sides of a fused codec pass in the kernel's word layout, on
+    ``cur``'s device (the parent's bytes come from the registry on the
+    host and are uploaded here)."""
+    words = _fp.chunked_words(cur, chunk_bytes)
+    pwords = _fp.chunked_words(np.frombuffer(parent_raw, np.uint8),
+                               chunk_bytes).to(words.device)
+    assert pwords.shape == words.shape, (words.shape, pwords.shape)
+    return words, pwords
+
+
+def fused_xor_fingerprint(cur, parent_raw: bytes, chunk_bytes: int):
+    """One fused pass over ``cur``: chunk fingerprints + XOR vs parent.
+
+    Returns ``(fps [C, 4] int64 holding uint32, xor_words [C, R, 128]
+    int32 bits)`` on ``cur``'s device.  The fingerprints equal
+    ``chunk_fingerprint(cur, ...)``; the XOR words feed the host RLE pass
+    of the ``xor_rle`` codec."""
+    words, pwords = _codec_words(cur, parent_raw, chunk_bytes)
+    if words.is_cuda:
+        lanes, xor = _ck.xor_fp_lanes(words, pwords)
+    else:
+        lanes, xor = _ck.xor_fp_ref(words, pwords)
+    return _fp.collapse_lanes(lanes), xor
+
+
+def fused_int8_fingerprint(cur, parent_raw: bytes, chunk_bytes: int):
+    """One fused pass over a float32 ``cur``: chunk fingerprints +
+    blockwise int8 quantization of the delta vs the decoded parent.
+
+    Returns ``(fps [C, 4] int64 holding uint32, q int8 [C, NB, 256],
+    scale float32 [C, NB])`` with ``NB`` quant blocks per (zero-padded)
+    chunk; ``q``/``scale`` equal ``optim.compression._quant`` on each
+    chunk's delta, bit for bit."""
+    words, pwords = _codec_words(cur, parent_raw, chunk_bytes)
+    if words.is_cuda:
+        lanes, q, scale = _ck.int8_fp_lanes(words, pwords)
+    else:
+        lanes, q, scale = _ck.int8_fp_ref(words, pwords)
+    return _fp.collapse_lanes(lanes), q, scale

@@ -3,16 +3,15 @@
   PYTHONPATH=src python -m repro_torch.launch.migrate \
       --strategy ms2m_cutoff --rate 12 --batched-replay --device cuda
 
-Port of ``repro.launch.migrate``.  Runs the full fold workload (producer
--> consumer pod -> migration -> verify) on the virtual-time cluster with
-the real paper-consumer model on ``--device`` (``cuda`` by default: the
-decode-attention and chunk-fingerprint kernels run on the card) and
-prints the MigrationReport (phases, downtime, image bytes,
-verification).
-
-The flags are the reference's.  ``--workload serving|rebalance`` and the
-``xor_rle``/``int8``/``auto`` codecs are not ported yet: asking for them
-exits with status 2 and says so.
+Port of ``repro.launch.migrate``, with the reference's flags.  Runs the
+full fold workload (producer -> consumer pod -> migration -> verify) on
+the virtual-time cluster with the real paper-consumer model on
+``--device`` (``cuda`` by default: the decode-attention, fingerprint and,
+with ``--compression xor_rle|int8|auto``, the fused codec kernels run on
+the card) and prints the MigrationReport (phases, downtime, image bytes,
+verification).  ``--workload serving`` drives the serving engine on
+``--device`` (or the hash worker with ``--hash-consumer``);
+``--workload rebalance`` runs the fleet under faults.
 
 The strategy list comes from the registry, so operator-registered schemes
 (imported via ``--strategy-module``) are drivable without touching this
@@ -24,8 +23,6 @@ import argparse
 import importlib
 import json
 import tempfile
-
-import sys
 
 from repro_torch.cluster import (FAULT_KINDS, available_topologies, parse_fault,
                            topology_entries)
@@ -109,8 +106,9 @@ def main(argv=None) -> int:
     ap.add_argument("--hash-consumer", action="store_true",
                     help="cheap fold worker instead of the model")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the model consumer (cuda runs "
-                         "the CUDA kernels; cpu their plain versions)")
+                    help="torch device of the model consumer and the "
+                         "serving engine (cuda runs the CUDA kernels; cpu "
+                         "their plain versions)")
     ap.add_argument("--batched-replay", action="store_true")
     ap.add_argument("--precopy", action="store_true",
                     help="iterative delta pre-copy transfer engine")
@@ -165,16 +163,71 @@ def main(argv=None) -> int:
     if args.list_topologies:
         return list_topologies()
 
-    not_ported = []
-    if args.workload != "fold":
-        not_ported.append(f"--workload {args.workload}")
-    if args.compression != "none":
-        not_ported.append(f"--compression {args.compression}")
-    if not_ported:
-        print(f"[migrate] {', '.join(not_ported)}: not ported yet to "
-              "repro_torch (the reference package runs it: python -m "
-              "repro.launch.migrate)", file=sys.stderr)
-        return 2
+    if args.workload == "rebalance":
+        from repro_torch.cluster.controller import (RebalanceConfig,
+                                                    run_rebalance_scenario)
+
+        config = None
+        if args.controller:
+            config = RebalanceConfig(
+                tick_s=args.controller_tick,
+                horizon_s=args.controller_horizon,
+                suspect_s=args.controller_suspect,
+                cooldown_s=args.controller_cooldown,
+                max_moves_per_tick=args.controller_max_moves,
+                min_risk=args.controller_min_risk,
+                min_score=args.controller_min_score,
+                strategy=args.strategy)
+        faults = [parse_fault(spec) for spec in args.fault] or None
+        registry = args.registry or tempfile.mkdtemp(prefix="repro-registry-")
+        r = run_rebalance_scenario(
+            registry_root=registry, n_pods=args.n_pods,
+            num_nodes=args.num_nodes, message_rate=args.rate,
+            schedule=args.arrival_schedule, faults=faults, seed=args.seed,
+            t_end=args.t_end, controller=config,
+            processing_ms=args.processing_ms, topology=args.topology,
+            policy=MigrationPolicy(max_attempts=args.max_attempts,
+                                   retry_backoff_s=args.retry_backoff))
+        print(json.dumps(r.row(), indent=2))
+        if args.events:
+            print(json.dumps(r.events, indent=2))
+        print(f"[migrate] controller={'on' if config else 'off'} "
+              f"unserved={r.unserved_queue_seconds:.1f}qs "
+              f"moves={r.n_moves} moved_bytes={r.moved_wire_bytes} "
+              f"all_verified={r.all_verified}")
+        return 0 if r.all_verified else 1
+
+    if args.workload == "serving":
+        from repro_torch.serving.handoff import run_serving_experiment
+
+        policy = MigrationPolicy(
+            precopy=args.precopy,
+            precopy_max_rounds=args.precopy_max_rounds,
+            compression=args.compression,
+            t_replay_max=args.t_replay_max,
+            max_attempts=args.max_attempts,
+            retry_backoff_s=args.retry_backoff,
+        )
+        faults = [parse_fault(spec) for spec in args.fault] or None
+        registry = args.registry or tempfile.mkdtemp(prefix="repro-registry-")
+        r = run_serving_experiment(
+            args.strategy, args.rate, registry_root=registry,
+            processing_ms=args.processing_ms, seed=args.seed,
+            worker="hash" if args.hash_consumer else "engine",
+            num_slots=args.num_slots, decode_rounds=args.decode_rounds,
+            topology=args.topology, faults=faults, policy=policy,
+            allow_failure=faults is not None, device=args.device)
+        print(json.dumps(r.row(), indent=2))
+        lat = r.latency()
+        if r.failed:
+            print(f"[migrate] FAILED after {r.failure.get('attempts')} "
+                  f"attempt(s): {r.failure.get('error')} (rolled back: "
+                  f"source_serving={r.failure.get('source_serving')})")
+        print(f"[migrate] p50={lat['p50']} p99={lat['p99']} "
+              f"p999={lat['p999']} downtime={r.downtime:.2f}s "
+              f"exactly_once={r.exactly_once} "
+              f"state_verified={r.state_verified}")
+        return 0 if r.exactly_once and r.state_verified is not False else 1
 
     worker_factory = None
     speedup = 1.0

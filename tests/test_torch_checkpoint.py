@@ -75,9 +75,17 @@ def _report_fields(report):
 
 
 def _chunk_entries(reg, image_id):
+    """The leaves' chunk entries; a chunk's parent image (``pim``) is
+    given as its depth in the image's delta chain, since ids differ."""
     tree = reg._manifest(image_id)["trees"]["state"]
-    return [{k: leaf[k] for k in ("dtype", "shape", "nbytes", "chunks", "fps")}
-            for leaf in tree["leaves"]]
+    chain = reg.delta_chain(image_id)
+    out = []
+    for leaf in tree["leaves"]:
+        ent = {k: leaf[k] for k in ("dtype", "shape", "nbytes", "fps")}
+        ent["chunks"] = [dict(ch, pim=chain.index(ch["pim"])) if "pim" in ch
+                         else ch for ch in leaf["chunks"]]
+        out.append(ent)
+    return out
 
 
 def test_flatten_orders_leaves_as_jax():
@@ -132,16 +140,61 @@ def test_pull_round_trip_is_exact(registries):
             assert g == w and g.dtype == np.asarray(w).dtype
 
 
-def test_unported_codecs_raise_instead_of_storing_raw(registries):
-    _, treg = registries
-    r = treg.push_image({"state": _as_torch(_state(2))})
+@pytest.mark.parametrize("backend", ["kernel", "host"])
+def test_unported_codecs_raise_instead_of_storing_raw(registries, monkeypatch,
+                                                      backend):
+    """The parent-relative codecs, once refused here, are ported: a chain
+    of ``xor_rle``/``int8``/``auto`` delta pushes (lossy rounds, then the
+    exact flush) gives chunk entries and report byte fields identical to
+    the JAX registry's, under the fused (``kernel``) and the two-pass
+    (``host``) encoder, and pulls back the same bytes.  An unknown codec
+    still raises."""
+    monkeypatch.setenv("REPRO_CODEC_BACKEND", backend)
+    jreg, treg = registries
+    jr = jreg.push_image({"state": _as_jax(_state(2))})
+    tr = treg.push_image({"state": _as_torch(_state(2))})
     for codec in ("xor_rle", "int8", "auto"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            treg.push_delta({"state": _as_torch(_state(2, dirty=True))},
-                            r.image_id, compression=codec)
+        jp, tp = jr.image_id, tr.image_id
+        for step, exact in ((1, False), (2, False), (3, True)):
+            state = _state(2, dirty=True)
+            state["extra"]["odd"][step * 100: step * 100 + 9] += step
+            jd = jreg.push_delta({"state": _as_jax(state)}, jp,
+                                 compression=codec, exact=exact)
+            td = treg.push_delta({"state": _as_torch(state)}, tp,
+                                 compression=codec, exact=exact)
+            assert _report_fields(td) == _report_fields(jd), (codec, step)
+            assert (_chunk_entries(treg, td.image_id)
+                    == _chunk_entries(jreg, jd.image_id)), (codec, step)
+            assert td.enc_raw_bytes > 0
+            assert td.lossy == (codec == "int8" and not exact)
+            jp, tp = jd.image_id, td.image_id
+        enc = {ch.get("enc") for leaf in _chunk_entries(treg, tp)
+               for ch in leaf["chunks"]}
+        assert enc & {"xor_rle"}, enc
+        jt, _ = jreg.pull_image(jp)
+        tt, _ = treg.pull_image(tp)
+        for a, b in zip(jax.tree.leaves(jt["state"]), flatten(tt["state"])[0]):
+            assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
     with pytest.raises(ValueError, match="unknown compression"):
-        treg.push_delta({"state": _as_torch(_state(2))}, r.image_id,
+        treg.push_delta({"state": _as_torch(_state(2))}, tr.image_id,
                         compression="zstd")
+
+
+def test_codec_backends_agree_on_chunk_entries(tmp_path, monkeypatch):
+    """``REPRO_CODEC_BACKEND=kernel`` (one fused pass) and ``host`` (device
+    fingerprints, host codecs) store the same chunks."""
+    got = {}
+    for backend in ("kernel", "host"):
+        monkeypatch.setenv("REPRO_CODEC_BACKEND", backend)
+        reg = TRegistry(str(tmp_path / backend), chunk_bytes=CHUNK)
+        base = reg.push_image({"state": _as_torch(_state(4))})
+        ids = []
+        for codec in ("int8", "xor_rle"):
+            d = reg.push_delta({"state": _as_torch(_state(4, dirty=True))},
+                               base.image_id, compression=codec)
+            ids.append(_chunk_entries(reg, d.image_id))
+        got[backend] = ids
+    assert got["kernel"] == got["host"]
 
 
 def test_checkpointer_snapshots_before_the_caller_mutates(tmp_path):

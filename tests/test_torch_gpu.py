@@ -113,3 +113,116 @@ def test_consumer_on_card_matches_cpu(cuda):
     target.replay_sequential(msgs[15:])
     for a, b in zip(leaves(target.cache), leaves(on_card.cache)):
         assert torch.equal(a, b)
+
+
+# -- fused codec kernels -----------------------------------------------------
+
+def _codec_pair(dev, C, R, seed):
+    """float32 words [C, R, 128] and a parent with a dirty stripe."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cur = torch.randn((C, R, 128), generator=gen, device=dev)
+    par = cur.clone()
+    lo = R // 3
+    hi = min(R, lo + max(1, R // 8))
+    par[:, lo:hi] += torch.randn((C, hi - lo, 128), generator=gen, device=dev)
+    return cur.view(torch.int32), par.view(torch.int32)
+
+
+def _edge_pair(dev):
+    from repro_torch.kernels.codec import edge_blocks
+
+    cur, par = edge_blocks()
+    return (torch.from_numpy(cur).view(torch.int32).reshape(1, -1, 128).to(dev),
+            torch.from_numpy(par).view(torch.int32).reshape(1, -1, 128).to(dev))
+
+
+# the fold's [1, 8192, 128] (one 4 MiB chunk), the serving engine's
+# slot-aligned grid (~[1024, 4, 128]) and ragged odd-R shapes
+CODEC_SHAPES = [(1, 8192), (1024, 4), (3, 77), (2, 1), (5, 129)]
+
+
+@pytest.mark.parametrize("C,R", CODEC_SHAPES)
+def test_xor_fp_kernel_bit_identical(cuda, C, R):
+    from repro_torch.kernels import codec as ck
+
+    cur, par = _codec_pair(cuda, C, R, seed=C + R)
+    before = ck.LAUNCHES["xor_fp_lanes"]
+    lanes, xor = ck.xor_fp_lanes(cur, par)
+    lanes2, xor2 = ck.xor_fp_lanes(cur, par)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["xor_fp_lanes"] == before + 2
+    want_lanes, want_xor = ck.xor_fp_ref(cur, par)
+    assert torch.equal(lanes, want_lanes) and torch.equal(xor, want_xor)
+    assert torch.equal(lanes, lanes2) and torch.equal(xor, xor2)
+    assert torch.equal(lanes, fp.fingerprint_lanes(cur))
+    cpu = ck.xor_fp_ref(cur.cpu(), par.cpu())
+    assert torch.equal(lanes.cpu(), cpu[0]) and torch.equal(xor.cpu(), cpu[1])
+
+
+@pytest.mark.parametrize("C,R", CODEC_SHAPES + [("edge", None)])
+def test_int8_fp_kernel_bit_identical(cuda, C, R):
+    from repro_torch.kernels import codec as ck
+
+    if C == "edge":
+        cur, par = _edge_pair(cuda)
+    else:
+        cur, par = _codec_pair(cuda, C, R, seed=3 * R)
+    before = ck.LAUNCHES["int8_fp_lanes"]
+    got = ck.int8_fp_lanes(cur, par)
+    again = ck.int8_fp_lanes(cur, par)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["int8_fp_lanes"] == before + 2
+    want = ck.int8_fp_ref(cur, par)
+    cpu = ck.int8_fp_ref(cur.cpu(), par.cpu())
+    for g, a, w, c in zip(got, again, want, cpu):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        bits = (lambda t: t.view(torch.int32)) if g.is_floating_point() \
+            else (lambda t: t)
+        assert torch.equal(bits(g), bits(a))
+        assert torch.equal(bits(g), bits(w))
+        assert torch.equal(bits(g).cpu(), bits(c))
+
+
+@pytest.mark.parametrize("codec", ["xor_rle", "int8"])
+def test_fused_leaf_encoding_card_equals_host(cuda, codec):
+    import numpy as np
+
+    from repro_torch.checkpoint.codecs import FusedLeafEncoding, get_codec
+    from repro_torch.checkpoint.fingerprint import leaf_fingerprints
+
+    cb = 64 * 1024
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    leaf = torch.randn((4, 1, 301, 4, 32), generator=gen, device=cuda)
+    parent = leaf.clone()
+    parent[1, 0, 100:140] += 0.5
+    parent[3] = torch.randn(parent[3].shape, generator=gen, device=cuda)
+    praw = parent.cpu().numpy().tobytes()
+    dt = np.dtype(np.float32)
+    on_card = FusedLeafEncoding(leaf, praw, codec, dt, cb)
+    on_host = FusedLeafEncoding(leaf.cpu(), praw, codec, dt, cb)
+    assert np.array_equal(on_card.fps, on_host.fps)
+    assert np.array_equal(on_card.fps, leaf_fingerprints(leaf.cpu(), cb))
+    raw = leaf.cpu().numpy().tobytes()
+    for c in range(-(-len(raw) // cb)):
+        seg, pseg = raw[c * cb:(c + 1) * cb], praw[c * cb:(c + 1) * cb]
+        assert on_card.blob(c) == on_host.blob(c)
+        assert on_card.blob(c) == get_codec(codec).encode(seg, pseg, dt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_row_without_valid_slot_is_mean_of_v(cuda, dtype):
+    """A (batch row, kv head) with no valid slot: uniform softmax, the
+    mean of V, as the plain version; the other rows keep their bits."""
+    q, k, v, qp, kp = _decode_inputs(cuda, 3, 300, 8, 4, 32, dtype, False)
+    before = da.decode_attention(q, k, v, qp, kp)
+    kp_empty = kp.clone()
+    kp_empty[1] = -1                       # row 1: every slot empty
+    got = da.decode_attention(q, k, v, qp, kp_empty)
+    want = ref.decode_attention(q, k, v, q_pos=qp, k_pos=kp_empty)
+    torch.cuda.synchronize()
+    tol = TOL32 if dtype == torch.float32 else TOL_BF16
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    mean_v = v[1].float().mean(0).repeat_interleave(2, dim=0)  # [H, D]
+    torch.testing.assert_close(got[1, 0].float(), mean_v, **tol)
+    assert torch.equal(got[0], before[0]) and torch.equal(got[2], before[2])
+    assert torch.equal(got, da.decode_attention(q, k, v, qp, kp_empty))

@@ -87,6 +87,54 @@ def test_model_consumer_rows_match_and_verify(tmp_path, strategy, precopy):
     assert got == want
 
 
+@pytest.mark.parametrize("seed", [0, 3, 7])
+@pytest.mark.parametrize("codec", ["xor_rle", "int8", "auto"])
+def test_hash_consumer_precopy_codec_rows_identical(tmp_path, codec, seed):
+    from repro.core import MigrationPolicy as JPolicy
+    from repro_torch.core import MigrationPolicy as TPolicy
+
+    kw = dict(seed=seed, t_migrate=8.0)
+    want = jax_experiment("ms2m_cutoff", 10.0,
+                          registry_root=str(tmp_path / "j"),
+                          policy=JPolicy(precopy=True, compression=codec),
+                          **kw).row()
+    got = torch_experiment("ms2m_cutoff", 10.0,
+                           registry_root=str(tmp_path / "t"),
+                           policy=TPolicy(precopy=True, compression=codec),
+                           **kw).row()
+    assert got == want
+    assert got["verified"] is True and got["compression"] == codec
+
+
+@pytest.mark.parametrize("codec", ["int8", "xor_rle"])
+def test_model_consumer_precopy_codec_rows_match_and_verify(tmp_path, codec):
+    """The smoke model's float32 cache through the lossy int8 rounds and
+    the exact flush (or through xor_rle): both packages verify the
+    migrated state, and the rows, byte counts included, are identical
+    (int8 blob sizes depend only on chunk sizes; the flush is raw)."""
+    from repro.core import MigrationPolicy as JPolicy
+    from repro_torch.core import MigrationPolicy as TPolicy
+
+    jcfg = jconfigs.get_smoke("paper_consumer")
+    tcfg = tconfigs.get_smoke("paper_consumer")
+    jparams = JT.init_lm(jax.random.PRNGKey(0), jcfg)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    kw = dict(seed=0, t_migrate=5.0, settle_time=2.0)
+    want = jax_experiment("ms2m_cutoff", 4.0,
+                          registry_root=str(tmp_path / "j"),
+                          worker_factory=lambda: JConsumer(jcfg, jparams, 128),
+                          policy=JPolicy(precopy=True, compression=codec),
+                          **kw).row()
+    got = torch_experiment("ms2m_cutoff", 4.0,
+                           registry_root=str(tmp_path / "t"),
+                           worker_factory=lambda: TConsumer(tcfg, tparams, 128),
+                           policy=TPolicy(precopy=True, compression=codec),
+                           **kw).row()
+    assert want["state_verified"] is True and got["state_verified"] is True
+    assert got["precopy_rounds"] > 1
+    assert got == want
+
+
 def test_port_runs_without_jax(tmp_path):
     """``import repro_torch`` and a CLI run load neither JAX nor repro."""
     code = (
@@ -97,15 +145,18 @@ def test_port_runs_without_jax(tmp_path):
         "assert rc == 0, rc\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n"
-        "rc = migrate.main(['--workload', 'serving'])\n"
-        "assert rc == 2, rc\n"
+        "rc = migrate.main(['--workload', 'serving', '--hash-consumer', "
+        f"'--rate', '8', '--registry', {str(tmp_path / 's')!r}])\n"
+        "assert rc == 0, rc\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+        "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
-    assert "not ported yet" in out.stderr
+    assert "exactly_once=True state_verified=True" in out.stdout
 
 
 def test_no_port_file_imports_jax_or_repro():
