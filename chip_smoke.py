@@ -14,18 +14,38 @@ Phases, each fatal on failure (no phase catches its own error):
      least time the card could take and one PyTorch library call where
      one computes the same function.  The fused codec kernels are held
      bit for bit at the fold's shape (a real float32 KV leaf against its
-     parent), the serving engine's slot-aligned chunk grid, a ragged
-     odd-row shape and the quantizer's edge values, and their
-     ``FusedLeafEncoding`` blobs against the host codecs'; the decode
-     kernel also on a row with no valid slot;
+     parent), the serving engine's slot-aligned chunk grid, the trainer
+     pre-copy's 64 KiB grid (a real trainer leaf), a ragged odd-row shape
+     and the quantizer's edge values, and their ``FusedLeafEncoding``
+     blobs against the host codecs'; the decode kernel also at
+     ``launch.serve``'s shape and on a row with no valid slot.
+     The flash-attention kernel is held to its plain version at the
+     training and prefill shapes of the paths, at the sweep of
+     ``tests/test_kernels.py`` and on masking edge cases (rows whose first
+     kv tile is fully masked, ragged lengths, rows with no valid key);
   4. model: the paper consumer's decode steps on the card against the
-     same steps on the CPU (the plain path);
+     same steps on the CPU (the plain path); over five seeds, card against
+     CPU, the gradients and three AdamW train steps of the paper consumer
+     at full width, and the logits of smollm_360m at full width cut to 2
+     layers (so that the CPU can run it too) through a forward, a prefill
+     and decode steps at ``launch.serve``'s shapes; each limit lies
+     between the sound readings and a control's (TF32 products, attention
+     without its masks), and the control must fail it;
   5. path: ``repro_torch.launch.migrate.main`` with its defaults (the
      paper consumer at full width, max_seq 2048), with ``--precopy``,
      with ``--precopy --compression int8`` and with ``--workload serving
      --precopy --compression int8`` (the serving engine on the card);
      each must verify its migrated state (and exactly-once delivery for
-     serving) and launch the kernels of its path.
+     serving) and launch the kernels of its path.  Then training:
+     ``repro_torch.launch.train`` with its defaults (smollm_360m at full
+     width) for 8 steps, and ``--resume`` to 10 steps from its last image
+     (about 13 GB of checkpoint images in a temporary registry under
+     ``build/``, checked for room first and deleted after);
+     ``repro_torch.launch.serve`` with its defaults (smollm_360m prefill
+     and decode); and a paper-consumer ``TrainerWorker`` at full width
+     migrated through ``ms2m_statefulset`` and through ``ms2m_precopy``
+     with int8 deltas (``benchmarks/delta_precopy.py``'s trainer
+     workload), each verified bit for bit against the reference fold.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -34,10 +54,15 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -48,12 +73,37 @@ torch.use_deterministic_algorithms(True)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-# Published H100 SXM peaks (data sheet): HBM bytes/s and float32 outside the
-# tensor cores, which also stands for 32-bit integer multiply-add here.
+# Published H100 SXM peaks (data sheet): HBM bytes/s, float32 outside the
+# tensor cores (which also stands for 32-bit integer multiply-add here) and
+# bf16 on the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+PEAK_BF16_OPS_S = 989e12
 DECODE_TOL = dict(rtol=1e-5, atol=1e-5)      # float32, split-KV sum order
 DECODE_TOL_BF16 = dict(rtol=2e-2, atol=2e-2)  # bf16 output rounding
+FLASH_TOL = dict(rtol=1e-5, atol=1e-5)       # float32, tile-wise sum order
+FLASH_TOL_BF16 = dict(rtol=2e-2, atol=2e-2)  # bf16 output rounding
+# card against CPU, worst over SEEDS; each limit lies between the sound
+# readings and its control's (PERF.md, PR 13: on an H100 over seeds 0-4,
+# sound / control).  Paper consumer (float32): the largest gradient
+# difference at init over the leaf's largest gradient (2.5e-6 / 1.4e-3),
+# the loss (6.2e-8 / 1.4e-6) and grad_norm (2.0e-7 / 3.4e-5) of three
+# AdamW steps, relative, and the params after them, absolute (5.1e-5 /
+# 7.4e-4: Adam's per-entry normalization turns a sum-order difference on
+# a near-zero gradient into a visible part of lr); the control lets
+# cuBLAS round to TF32.
+SEEDS = (0, 1, 2, 3, 4)
+TRAIN_LIMITS = dict(grads=5e-5, loss=3e-7, grad_norm=3e-6, params=2e-4)
+# smollm_360m (bf16 compute), relative L2 error of the logits of a
+# forward, a prefill and 4 decode steps (6.4e-3 / 0.38 at worst); the
+# control drops attention's masks (a wrong attention forward); whether
+# this check sees a lower-precision product is not measured.
+SMOLLM_LIMITS = dict(forward=5e-2, prefill=5e-2, decode=5e-2)
+# the benchmark's WAN profile for the trainer workload
+# (benchmarks/delta_precopy.py:WAN_TIMINGS)
+WAN_TIMINGS = dict(checkpoint_s=1.0, image_build_s=2.0, delta_build_s=0.5,
+                   push_base_s=0.5, pull_base_s=0.5, restore_s=2.0,
+                   registry_bw_Bps=10e6)
 # request rate of the serving engine's run (req/s; the CLI's default is
 # 10): low enough that the run stays near a minute on the card
 SERVING_RATE = "2"
@@ -94,9 +144,9 @@ def graph_ms(fn, reps: int = 50, graphs: int = 5) -> float:
     return start.elapsed_time(end) / (graphs * reps)
 
 
-def bound(nbytes: int, ops: int):
+def bound(nbytes: int, ops: int, peak_ops_s: float = PEAK_F32_OPS_S):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_S * 1e3
+    t_ops = ops / peak_ops_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -157,6 +207,11 @@ def kernel_phase():
     # -- decode attention -------------------------------------------------
     cases = [  # (label, B, S, H, Hkv, D, dtype, ring, tol)
         ("main", 1, 2048, 8, 4, 32, torch.float32, False, DECODE_TOL),
+    # launch.serve's shape: smollm_360m, batch 8, max_seq 128, g = 3
+    ("smollm-serve", 8, 128, 15, 5, 64, torch.bfloat16, False,
+     DECODE_TOL_BF16),
+    ("smollm-serve-ring", 8, 128, 15, 5, 64, torch.bfloat16, True,
+     DECODE_TOL_BF16),
         ("ragged", 3, 1000, 12, 3, 48, torch.float32, True, DECODE_TOL),
         ("ragged-bf16", 2, 777, 8, 2, 64, torch.bfloat16, True,
          DECODE_TOL_BF16),
@@ -245,9 +300,105 @@ def kernel_phase():
           f"{plain_ms * 1e3:.2f} us plain, bound {b_ms * 1e3:.3f} us "
           f"({b_by})")
     rows.update(codec_kernels())
+    rows["flash_attention"] = flash_kernel(gen)
     decode_empty_row(gen)
     print("[kernels] " + json.dumps(sorted(rows)))
     return rows
+
+
+FLASH_CASES = [  # (label, B, Sq, Sk, H, Hkv, D, dtype, causal, window)
+    ("smollm-train", 8, 128, 128, 15, 5, 64, torch.bfloat16, True, 0),
+    ("paper-train", 8, 128, 128, 8, 4, 32, torch.float32, True, 0),
+    ("smollm-prefill", 8, 32, 32, 15, 5, 64, torch.bfloat16, True, 0),
+    # tests/test_kernels.py's sweep
+    *[(f"sweep-{B}x{S}x{H}x{Hkv}x{D}-w{w}", B, S, S, H, Hkv, D, dt, True, w)
+      for B, S, H, Hkv, D in [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64),
+                              (1, 256, 4, 1, 128), (2, 128, 6, 3, 32)]
+      for dt in (torch.float32, torch.bfloat16) for w in (0, 64)],
+    # rows 64..127 walk kv tile 0 first, and for rows >= 103 every key of
+    # that tile lies outside the window
+    ("first-tile-masked", 2, 256, 256, 4, 2, 64, torch.float32, True, 40),
+    ("first-tile-masked-bf16", 2, 256, 256, 4, 2, 64, torch.bfloat16, True,
+     40),
+    ("ragged", 2, 100, 100, 6, 2, 48, torch.float32, True, 0),
+    ("no-valid-key", 2, 128, 48, 4, 2, 16, torch.float32, True, 16),
+    ("no-mask", 2, 96, 96, 4, 4, 32, torch.float32, False, 0),
+]
+
+
+def flash_work(q, k, causal: bool, window: int):
+    """(bytes, operations) of one call: q, k, v read once, o written once;
+    4 * D operations (two multiply-adds) per (query, kept key) pair."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    qp = torch.arange(Sq)[:, None]
+    kp = torch.arange(Sk)[None, :]
+    keep = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        keep &= qp >= kp
+    if window:
+        keep &= qp - kp < window
+    nbytes = 2 * q.nbytes + 2 * k.nbytes
+    return nbytes, 4 * B * H * D * int(keep.sum())
+
+
+def flash_kernel(gen):
+    """The flash kernel against its plain version at every case, two
+    launches bit-equal; times at the smollm and paper-consumer training
+    shapes, the first of them the table's row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    row = None
+    for label, B, Sq, Sk, H, Hkv, D, dtype, causal, window in FLASH_CASES:
+        q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda").to(dtype)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        again = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.naive_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL if dtype == torch.float32 else FLASH_TOL_BF16
+        err = (got.float() - want.float()).abs().max().item()
+        print(f"[kernels] flash_attention {label} q[{B},{Sq},{H},{D}] "
+              f"k[{B},{Sk},{Hkv},{D}] {str(dtype)[6:]} causal={causal} "
+              f"window={window}: max_abs_err={err:.3e}")
+        check(bool(torch.isfinite(got).all()), f"flash {label}: non-finite")
+        check(torch.allclose(got.float(), want.float(), **tol),
+              f"flash {label}: kernel disagrees with the plain version "
+              f"({err:.3e}, tolerance {tol})")
+        check(torch.equal(got, again), f"flash {label}: two launches differ")
+        if not label.endswith("-train"):
+            continue
+        ms = graph_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+        plain_ms = graph_ms(lambda: ref.naive_attention(q, k, v))
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                             enable_gqa=True).transpose(1, 2)
+        # the yardstick must compute the same function; its own internal
+        # precision is the library's business, hence the loose bound
+        check(torch.allclose(lib.float(), want.float(), **FLASH_TOL_BF16),
+              f"SDPA yardstick disagrees with the plain flash version "
+              f"({label})")
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True))
+        nbytes, ops_n = flash_work(q, k, True, 0)
+        peak = PEAK_BF16_OPS_S if dtype == torch.bfloat16 else PEAK_F32_OPS_S
+        b_ms, b_by = bound(nbytes, ops_n, peak)
+        print(f"[kernels] flash_attention {label}: {ms * 1e3:.2f} us kernel, "
+              f"{plain_ms * 1e3:.2f} us plain, {library_ms * 1e3:.2f} us "
+              f"SDPA, bound {b_ms * 1e3:.3f} us ({b_by}, {nbytes} bytes, "
+              f"{ops_n} operations)")
+        if row is None:
+            row = dict(
+                name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:102",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
+    return row
 
 
 def decode_empty_row(gen) -> None:
@@ -288,7 +439,10 @@ def codec_inputs():
     """(label, cur words, parent words, chunk bytes, leaf, parent bytes)
     on the card: the fold's real KV leaf against its parent (16 more
     decoded tokens: a dirty stripe), the serving engine's leaf on its
-    slot-aligned chunk grid, a ragged odd-row shape and the edge values."""
+    slot-aligned chunk grid, the paper-consumer trainer's embedding table
+    against its parent two AdamW steps earlier on the trainer pre-copy's
+    64 KiB grid (words [C, 128, 128]), a ragged odd-row shape and the
+    edge values."""
     from repro_torch import configs
     from repro_torch.broker.broker import Message
     from repro_torch.checkpoint.codecs import leaf_raw
@@ -324,9 +478,17 @@ def codec_inputs():
     print(f"[kernels] serving engine (8 slots, max_seq 128): "
           f"slot_aligned_chunk_bytes={s_chunk}")
 
+    trainer = trainer_factory("cuda")()
+    for i in range(6):
+        if i == 4:
+            t_parent = trainer.state_tree()["params"]["embed"]["table"]
+        trainer.process(Message(i, {"batch_id": i}, 0.0))
+    t_leaf = trainer.params["embed"]["table"].clone()
+
     out = []
     for label, leaf, par, cb in (("fold", fold_leaf, parent, CHUNK_BYTES),
-                                 ("serving", s_leaf, s_parent, s_chunk)):
+                                 ("serving", s_leaf, s_parent, s_chunk),
+                                 ("trainer", t_leaf, t_parent, 64 * 1024)):
         praw = leaf_raw(par)
         cw, pw = ops._codec_words(leaf, praw, cb)
         out.append((label, cw, pw, cb, leaf, praw))
@@ -387,9 +549,9 @@ def codec_kernels():
             print(f"[kernels] FusedLeafEncoding {codec} {label}: {n} chunks, "
                   f"card blobs == host codec blobs: {same}")
             check(same, f"FusedLeafEncoding {codec} {label}: blobs differ")
-        if label == "serving":
+        if label in ("serving", "trainer"):
             for name, fn, plain in kernels:
-                print(f"[kernels] {name} serving: "
+                print(f"[kernels] {name} {label}: "
                       f"{graph_ms(lambda: fn(cw, pw)) * 1e3:.2f} us kernel, "
                       f"{graph_ms(lambda: plain(cw, pw)) * 1e3:.2f} us plain")
         if label != "fold":
@@ -451,38 +613,413 @@ def model_phase() -> None:
     check(worst <= 1e-4, "model decode on the card disagrees with the CPU path")
 
 
-KERNELS = ("decode_attention", "fingerprint_lanes", "xor_fp_lanes",
-           "int8_fp_lanes")
-
-
-def path_phase(argv, label, needs):
-    """One ``launch/migrate`` run: every counter set to 0 just before it
-    and read just after; each kernel in ``needs`` must have launched."""
+def trainer_settings():
+    """The paper consumer at full width, ``launch/train``'s data shape
+    (batch 8, seq 128) and the reference benchmark's trainer settings
+    (``make_trainer_factory``): -> (model, step and data configs)."""
     from repro_torch import configs
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as steplib
+
+    cfg = configs.get_config("paper_consumer")
+    tcfg = steplib.TrainStepConfig(
+        remat="none", lr_peak=1e-3, warmup_steps=5, total_steps=10_000,
+        opt=adamw.AdamWConfig(weight_decay=0.01))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=8)
+    return cfg, tcfg, dcfg
+
+
+def trainer_factory(device):
+    from repro_torch.core.trainer_worker import TrainerWorker
+
+    cfg, tcfg, dcfg = trainer_settings()
+    return lambda: TrainerWorker(cfg, tcfg, dcfg, device=device)
+
+
+def _grads(params, batch, cfg):
+    """Gradients of ``lm_loss`` at ``params`` (a list, leaf order)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import flatten, unflatten
+
+    flat, treedef = flatten(params)
+    with torch.enable_grad():
+        inputs = [p.detach().requires_grad_() for p in flat]
+        loss, _ = T.lm_loss(unflatten(treedef, inputs), batch, cfg)
+        return torch.autograd.grad(loss, inputs)
+
+
+def _rel_max(got, want) -> float:
+    """Largest |got - want| over the largest |want|, worst over leaves."""
+    return max(((g.cpu().float() - w.float()).abs().max()
+                / w.float().abs().max()).item() for g, w in zip(got, want))
+
+
+def _rel_norm(got, want) -> float:
+    got, want = got.cpu().float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def paper_train_run(seed: int, device: str):
+    """The paper consumer at full width from ``init_lm(seed)``: gradients
+    at init on the seed's first batch, then three AdamW train steps.
+    -> (grads, [loss], [grad_norm], params)."""
+    import dataclasses
+
+    from repro_torch.convert import to_tensor
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as steplib
+
+    cfg, tcfg, dcfg = trainer_settings()
+    ds = SyntheticTokenDataset(dataclasses.replace(dcfg, seed=seed))
+    params = T.init_lm(cfg, seed=seed, device=device)
+    batches = [{k: to_tensor(a, device) for k, a in ds.batch(i).items()}
+               for i in range(3)]
+    grads = _grads(params, batches[0], cfg)
+    opt = adamw.adamw_init(params, tcfg.opt)
+    train_step = steplib.build_train_step(cfg, tcfg)
+    losses, norms = [], []
+    for i, b in enumerate(batches):
+        params, opt, met = train_step(params, opt, b,
+                                      torch.tensor(i, dtype=torch.int32))
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    return grads, losses, norms, params
+
+
+def paper_train_readings(seed: int, host, tf32: bool = False) -> dict:
+    """Card against the CPU run ``host`` (``paper_train_run(seed,
+    "cpu")``); ``tf32`` lets cuBLAS round its float32 inputs to TF32 (the
+    control: a lower-precision product)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.tree import leaves
+
+    cfg = trainer_settings()[0]
+    before = fa.LAUNCHES
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        grads, losses, norms, params = paper_train_run(seed, "cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    # one forward for the gradients, three train steps
+    check(fa.LAUNCHES - before == 4 * cfg.num_layers,
+          f"paper_consumer train: flash kernel launches "
+          f"{fa.LAUNCHES - before}, want {4 * cfg.num_layers}")
+    check(all(math.isfinite(x) for x in losses + norms),
+          "paper_consumer train on the card: loss or grad_norm not finite")
+    h_grads, h_losses, h_norms, h_params = host
+    return {
+        "grads": _rel_max(grads, h_grads),
+        "loss": max(abs(c - h) / abs(h) for c, h in zip(losses, h_losses)),
+        "grad_norm": max(abs(c - h) / abs(h) for c, h in zip(norms, h_norms)),
+        "params": max((a.cpu() - b).abs().max().item() for a, b in
+                      zip(leaves(params), leaves(h_params))),
+    }
+
+
+def smollm_run(seed: int, device: str):
+    """smollm_360m at full width cut to 2 layers: ``lm_forward`` logits on
+    a [8, 128] batch (flash at the train shape), then ``lm_prefill`` of
+    8 prompts of 32 tokens into a max_seq-128 cache (flash at the prefill
+    shape) and 4 teacher-forced ``lm_decode_step`` calls (the decode
+    kernel at ``launch.serve``'s shape).  -> (forward, prefill, decode
+    logits), float32."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.convert import to_tensor
+    from repro_torch.data import DataConfig, SyntheticTokenDataset
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(configs.get_config("smollm_360m"), num_layers=2)
+    params = T.init_lm(cfg, seed=seed, device=device)
+    batch = SyntheticTokenDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=128, global_batch=8,
+        seed=seed)).batch(0)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (8, 36)).astype(np.int32)
+    with torch.no_grad():
+        fwd, _ = T.lm_forward(params, {k: to_tensor(a, device)
+                                       for k, a in batch.items()}, cfg)
+        cache = T.init_cache(cfg, 8, 128, device=device)
+        pre, cache = T.lm_prefill(
+            params, {"tokens": to_tensor(toks[:, :32], device)}, cfg, cache)
+        dec = []
+        for t in range(32, 36):
+            pos = torch.full((8, 1), t, dtype=torch.int32, device=device)
+            lg, cache = T.lm_decode_step(
+                params, to_tensor(toks[:, t:t + 1], device), pos, cfg, cache)
+            dec.append(lg)
+    return fwd.float(), pre.float(), torch.cat(dec, 1).float()
+
+
+@contextlib.contextmanager
+def wrong_attention():
+    """The control of the smollm check: attention with its masks dropped,
+    i.e. train/prefill attention without the causal mask and decode
+    attention over every cache slot, empty ones included."""
+    from repro_torch.kernels import ops
+
+    attention, decode = ops.attention, ops.decode_attention
+
+    def no_mask(q, k, v, *, causal=True, window=0):
+        return attention(q, k, v, causal=False, window=0)
+
+    def all_slots(q, k_cache, v_cache, q_pos, k_pos):
+        every = torch.arange(k_pos.shape[1], dtype=k_pos.dtype,
+                             device=k_pos.device).expand_as(k_pos)
+        return decode(q, k_cache, v_cache, q_pos + k_pos.shape[1], every)
+
+    ops.attention, ops.decode_attention = no_mask, all_slots
+    try:
+        yield
+    finally:
+        ops.attention, ops.decode_attention = attention, decode
+
+
+def smollm_readings(seed: int, host, control: bool = False) -> dict:
+    """Card against the CPU run ``host`` (``smollm_run(seed, "cpu")``):
+    relative L2 error of each logits tensor; ``control`` runs the card
+    with ``wrong_attention``."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = dataclasses.replace(configs.get_config("smollm_360m"), num_layers=2)
+    f0, d0 = fa.LAUNCHES, da.LAUNCHES
+    with wrong_attention() if control else contextlib.nullcontext():
+        got = smollm_run(seed, "cuda")
+    check(fa.LAUNCHES - f0 == 2 * cfg.num_layers
+          and da.LAUNCHES - d0 == 4 * cfg.num_layers,
+          f"smollm check: {fa.LAUNCHES - f0} flash and {da.LAUNCHES - d0} "
+          "decode launches, want 4 and 8")
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          "smollm logits on the card not finite")
+    return {name: _rel_norm(g, h)
+            for name, g, h in zip(("forward", "prefill", "decode"), got, host)}
+
+
+def train_model_phase() -> None:
+    """Card against CPU, over ``SEEDS``: gradients and three AdamW train
+    steps of the paper consumer at full width, and the logits of
+    smollm_360m at full width cut to 2 layers (only so that the CPU runs
+    it in seconds) through forward, prefill and decode.  Each check's
+    limit (``TRAIN_LIMITS``, ``SMOLLM_LIMITS``) must hold for every seed
+    and fail for its control at every seed."""
+    for kind, run, readings, limits, control in (
+            ("paper_consumer train", paper_train_run, paper_train_readings,
+             TRAIN_LIMITS, dict(tf32=True)),
+            ("smollm_360m logits", smollm_run, smollm_readings,
+             SMOLLM_LIMITS, dict(control=True))):
+        sound, ctl = [], []
+        for seed in SEEDS:
+            host = run(seed, "cpu")
+            sound.append(readings(seed, host))
+            ctl.append(readings(seed, host, **control))
+            for label, r in (("card vs CPU", sound[-1]),
+                             (f"control {control}", ctl[-1])):
+                print(f"[model] {kind}, {label}, seed {seed}: "
+                      + " ".join(f"{k}={v:.3e}" for k, v in r.items()))
+        for name, limit in limits.items():
+            worst = max(r[name] for r in sound)
+            least = min(r[name] for r in ctl)
+            print(f"[model] {kind} {name}: worst sound {worst:.3e}, limit "
+                  f"{limit:.1e}, least control {least:.3e}")
+            check(worst <= limit, f"{kind}: card disagrees with the CPU "
+                  f"({name} {worst:.3e} > {limit:.1e})")
+            check(least > limit, f"{kind}: a control passes the {name} "
+                  f"limit ({least:.3e} <= {limit:.1e}); the check cannot "
+                  "see it")
+
+
+KERNELS = ("decode_attention", "fingerprint_lanes", "xor_fp_lanes",
+           "int8_fp_lanes", "flash_attention")
+CODEC = ("xor_fp_lanes", "int8_fp_lanes")
+
+
+def _counters():
     from repro_torch.kernels import codec as ck
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import fingerprint as fp
-    from repro_torch.launch import migrate
+    from repro_torch.kernels import flash_attention as fa
 
-    da.LAUNCHES = 0
-    fp.LAUNCHES = 0
+    return ck, da, fp, fa
+
+
+def reset_counts() -> None:
+    ck, da, fp, fa = _counters()
+    da.LAUNCHES = fp.LAUNCHES = fa.LAUNCHES = 0
     for name in ck.LAUNCHES:
         ck.LAUNCHES[name] = 0
+
+
+def read_counts() -> dict:
+    ck, da, fp, fa = _counters()
+    return {"decode_attention": da.LAUNCHES, "fingerprint_lanes": fp.LAUNCHES,
+            **ck.LAUNCHES, "flash_attention": fa.LAUNCHES}
+
+
+def run_path(label, fn, needs):
+    """Run ``fn()`` with every counter set to 0 just before and read just
+    after; each kernel in ``needs`` must have launched.  -> (launches,
+    fn's result, wall seconds)."""
+    reset_counts()
     t0 = time.perf_counter()
-    rc = migrate.main(argv)
+    result = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"decode_attention": da.LAUNCHES,
-                "fingerprint_lanes": fp.LAUNCHES, **ck.LAUNCHES}
-    # one launch per layer per decode step (source, replay and reference)
-    steps = da.LAUNCHES // configs.get_config("paper_consumer").num_layers
-    print(f"[path] {label}: rc={rc} wall={wall:.3f} s launches={launches} "
-          f"decode_steps={steps} wall_per_step_ms="
-          f"{wall / max(steps, 1) * 1e3:.3f}")
-    check(rc == 0, f"{label}: migrate exited {rc} (its state must verify)")
+    launches = read_counts()
+    print(f"[path] {label}: wall={wall:.3f} s launches={launches}")
     for name in needs:
         check(launches[name] > 0, f"{label}: kernel {name} never launched")
+    return launches, result, wall
+
+
+def path_phase(argv, label, needs):
+    """One ``launch/migrate`` run; its state must verify."""
+    from repro_torch import configs
+    from repro_torch.launch import migrate
+
+    launches, rc, wall = run_path(label, lambda: migrate.main(argv), needs)
+    # one launch per layer per decode step (source, replay and reference)
+    steps = (launches["decode_attention"]
+             // configs.get_config("paper_consumer").num_layers)
+    print(f"[path] {label}: rc={rc} decode_steps={steps} wall_per_step_ms="
+          f"{wall / max(steps, 1) * 1e3:.3f}")
+    check(rc == 0, f"{label}: migrate exited {rc} (its state must verify)")
     return launches
+
+
+def _captured(fn, argv):
+    """Run a CLI ``main`` with its standard output captured, then echo it."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fn(argv)
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"    {line}")
+    return rc, text
+
+
+def train_paths(paths) -> None:
+    """``launch.train`` (smollm_360m, full width) for 8 steps, then
+    ``--resume`` to 10 steps, then ``launch.serve`` with its defaults.
+    Registry pushes are timed."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import registry as registry_mod
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve, train
+
+    cfg = configs.get_config("smollm_360m")
+    image_bytes = 12 * cfg.param_count()  # params, m and v in float32
+    need = 3 * image_bytes + 2 * 2 ** 30
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(build.BUILD_DIR).free
+    print(f"[path] train: {cfg.param_count()} params, image {image_bytes} "
+          f"bytes, three images to write; {free} bytes free under "
+          f"{build.BUILD_DIR}")
+    check(free >= need, f"train: {free} bytes free, need {need} for the "
+          "checkpoint images")
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=build.BUILD_DIR)
+    pushes = []
+    plain_push = registry_mod.Registry.push_image
+
+    def timed_push(self, trees, *args, **kwargs):
+        t0 = time.perf_counter()
+        rep = plain_push(self, trees, *args, **kwargs)
+        pushes.append((time.perf_counter() - t0, rep.total_bytes))
+        return rep
+
+    registry_mod.Registry.push_image = timed_push
+    try:
+        base = ["--ckpt-every", "100", "--registry", root]
+        for label, argv, expect in (
+                ("train", ["--steps", "8"] + base, None),
+                ("train-resume", ["--resume", "--steps", "10"] + base,
+                 "[train] resumed from step 7 image")):
+            launches, (rc, text), wall = run_path(
+                label, lambda: _captured(train.main, argv),
+                ("flash_attention", "fingerprint_lanes"))
+            paths[label] = launches
+            check(rc == 0, f"{label}: launch.train exited {rc}")
+            loss = float(text.split("[train] done; final loss")[1].split()[0])
+            check(math.isfinite(loss), f"{label}: final loss {loss}")
+            if expect:
+                check(expect in text, f"{label}: no line {expect!r}")
+            steps = launches["flash_attention"] // cfg.num_layers
+            print(f"[path] {label}: rc={rc} final_loss={loss:.4f} "
+                  f"train_steps={steps}")
+    finally:
+        registry_mod.Registry.push_image = plain_push
+        shutil.rmtree(root, ignore_errors=True)
+    for dt, nbytes in pushes:
+        print(f"[path] train checkpoint push: {nbytes} bytes in {dt:.3f} s "
+              f"({nbytes / dt / 1e9:.3f} GB/s)")
+    check(len(pushes) == 3, f"train: {len(pushes)} pushes, want 3")
+
+    # its logits at these shapes are held card against CPU in the model
+    # phase (smollm_readings)
+    launches, (rc, text), _ = run_path(
+        "serve", lambda: _captured(serve.main, []),
+        ("flash_attention", "decode_attention"))
+    paths["serve"] = launches
+    check(rc == 0, f"serve: launch.serve exited {rc}")
+    check("[serve] decoded 32 steps x 8 requests" in text,
+          "serve: no decode line")
+    check(launches["flash_attention"] == cfg.num_layers
+          and launches["decode_attention"] == 32 * cfg.num_layers,
+          f"serve: launches {launches}, want one prefill and 32 decode "
+          "steps")
+
+
+def trainer_migration_paths(paths) -> None:
+    """A paper-consumer ``TrainerWorker`` at full width migrated through
+    ``ms2m_statefulset`` and through ``ms2m_precopy`` with int8 deltas,
+    each verified bit for bit against the reference fold on the card."""
+    from repro_torch import configs
+    from repro_torch.cluster import TimingConstants
+    from repro_torch.core import MigrationPolicy, run_migration_experiment
+    from repro_torch.kernels import build
+
+    layers = configs.get_config("paper_consumer").num_layers
+    make = trainer_factory("cuda")
+    runs = (
+        ("trainer-statefulset", "ms2m_statefulset",
+         dict(seed=0, t_migrate=5.0, settle_time=2.0),
+         ("flash_attention", "fingerprint_lanes")),
+        ("trainer-precopy-int8", "ms2m_precopy",
+         dict(seed=7, t_migrate=5.0, timings=TimingConstants(**WAN_TIMINGS),
+              chunk_bytes=64 * 1024,
+              policy=MigrationPolicy(compression="int8",
+                                     precopy_max_rounds=8,
+                                     precopy_converge_ratio=100.0)),
+         ("flash_attention", "fingerprint_lanes", "int8_fp_lanes")),
+    )
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for label, strategy, kw, needs in runs:
+        with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as root:
+            launches, r, wall = run_path(
+                label, lambda: run_migration_experiment(
+                    strategy, 4.0, registry_root=root, worker_factory=make,
+                    **kw), needs)
+        paths[label] = launches
+        row = r.row()
+        steps = launches["flash_attention"] // layers
+        print(f"[path] {label}: verified={r.verified} downtime="
+              f"{row['downtime']} replayed={r.report.replayed_messages} "
+              f"precopy_rounds={row['precopy_rounds']} image_raw_bytes="
+              f"{row['image_raw_bytes']} image_wire_bytes="
+              f"{row['image_wire_bytes']} train_steps={steps} "
+              f"wall_per_step_ms={wall / max(steps, 1) * 1e3:.3f}")
+        check(r.verified, f"{label}: migrated trainer differs from the "
+              "reference fold")
+        check(r.report.replayed_messages > 0, f"{label}: nothing replayed")
 
 
 def main() -> int:
@@ -497,17 +1034,20 @@ def main() -> int:
     build_phase()
     rows = kernel_phase()
     model_phase()
+    train_model_phase()
     fold = ("decode_attention", "fingerprint_lanes")
     paths = {
         "default": path_phase([], "default", fold),
         "precopy": path_phase(["--precopy"], "precopy", fold),
         "precopy-int8": path_phase(["--precopy", "--compression", "int8"],
-                                   "precopy-int8", KERNELS),
+                                   "precopy-int8", fold + CODEC),
         "serving-int8": path_phase(
             ["--workload", "serving", "--rate", SERVING_RATE, "--precopy",
              "--compression", "int8"], "serving-int8",
             ("decode_attention", "xor_fp_lanes", "int8_fp_lanes")),
     }
+    train_paths(paths)
+    trainer_migration_paths(paths)
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in paths.values())
         row["launches_by_path"] = {label: p[name]

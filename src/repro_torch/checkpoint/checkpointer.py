@@ -38,11 +38,12 @@ class Checkpointer:
 
     def save(self, step: int, trees: Dict[str, Any],
              meta: Optional[dict] = None, block: bool = False):
-        # snapshot to host memory synchronously (cheap), push async; a copy
-        # even for CPU tensors, which the caller may go on mutating
-        host_trees = tree_map(
-            lambda x: (x.detach().to("cpu", copy=True)
-                       if isinstance(x, torch.Tensor) else x),
+        # snapshot synchronously, push async.  The snapshot is a clone on
+        # the tensor's own device (the caller goes on updating in place):
+        # a CUDA snapshot's chunk fingerprints then run on the card, and
+        # its bytes leave the card only as the push serializes them
+        snap = tree_map(
+            lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x,
             trees)
         meta = dict(meta or {})
         meta["step"] = step
@@ -50,7 +51,7 @@ class Checkpointer:
 
         def _push() -> PushReport:
             report = self.registry.push_image(
-                host_trees, meta, tag=f"{self.name}:latest")
+                snap, meta, tag=f"{self.name}:latest")
             with self._lock:
                 if self._latest is None or step >= self._latest[0]:
                     self._latest = (step, report.image_id)

@@ -1,8 +1,9 @@
 """Architecture registry of the port.
 
-Same interface as ``repro.configs``.  Only ``paper_consumer`` (the paper's
-evaluation microservice, the model the migration path runs) is ported;
-every other architecture name raises until its model family is ported.
+Same interface as ``repro.configs``.  Ported: ``paper_consumer`` (the
+paper's evaluation microservice, the model the migration path runs) and
+``smollm_360m`` (the training and serving CLIs' default); every other
+architecture name raises until its model family is ported.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ ARCHS: List[str] = [
     "xlstm_350m",
     "paper_consumer",  # the paper's own evaluation microservice model
 ]
-PORTED = ("paper_consumer",)
+PORTED = ("paper_consumer", "smollm_360m")
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 

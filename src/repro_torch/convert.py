@@ -1,11 +1,12 @@
-"""Numpy <-> torch bridging, and the reference's params in the port.
+"""Numpy <-> torch bridging, and the reference's state in the port.
 
-``params_from_jax`` turns the tree of ``repro``'s ``T.init_lm(...)``,
-handed over as numpy arrays, into the port's params (plain dicts of
-tensors), so both packages compute the same function in the parity
-tests.  The reference's ``ParamLeaf`` wrappers (anything with ``value``
-and ``axes`` attributes) are unwrapped; this module imports nothing of
-``repro`` or JAX.
+``tree_from_jax`` turns a tree of the reference's numpy leaves into the
+port's tree of tensors: ``repro``'s ``T.init_lm(...)`` params into the
+port's params (plain dicts of tensors), and its AdamW state
+(``adamw_init``/``adamw_update``) into the port's optimizer state, so
+both packages compute and train from the same point in the parity tests.  The reference's ``ParamLeaf`` wrappers (anything
+with ``value`` and ``axes`` attributes) are unwrapped; this module
+imports nothing of ``repro`` or JAX.
 """
 from __future__ import annotations
 
@@ -27,9 +28,10 @@ def to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def params_from_jax(np_tree, device="cuda"):
-    """Reference params (numpy leaves, possibly wrapped in ``ParamLeaf``)
-    -> the port's params dict on ``device``."""
+def tree_from_jax(np_tree, device="cuda"):
+    """A reference tree (numpy leaves, possibly wrapped in ``ParamLeaf``)
+    -> the same tree of tensors on ``device``: params, or the AdamW state
+    ``{"count", "mu": {leaf: {"m", "v"}}}`` (``count`` an int32 scalar)."""
     dev = resolve_device(device)
 
     def convert(node):
@@ -40,3 +42,4 @@ def params_from_jax(np_tree, device="cuda"):
         return to_tensor(node, dev)
 
     return convert(np_tree)
+

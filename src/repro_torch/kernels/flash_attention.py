@@ -1,0 +1,101 @@
+"""CUDA kernel for train/prefill attention, and its autograd wrapper.
+
+Port of ``repro.kernels.flash_attention`` (a Pallas TPU kernel) to a
+hand-written kernel for Hopper, ``csrc/flash_attention.cu``; the source
+says what bounds it and how its design meets that.  Its plain PyTorch
+version is ``repro_torch.kernels.ref.naive_attention``, which
+``ops.attention`` runs for CPU tensors.
+
+The reference has no backward kernel (JAX differentiates its jnp path),
+and neither has the port yet: ``FlashAttention``'s backward recomputes
+the plain version from the saved q, k, v and returns its gradients
+(plain PyTorch on the card, deterministic under
+``torch.use_deterministic_algorithms``).
+
+The kernel's walk is a pure function of the shape, so a given shape
+always sums in the same order: replay stays bit-exact on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import ref
+from repro_torch.kernels.ref import attn_scale
+
+LAUNCHES = 0  # wrapper calls that launched the kernel (main-path evidence)
+
+MAX_HEAD_DIM = 128
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_entry = None
+
+
+def _launcher():
+    global _entry
+    if _entry is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _entry = build.entry("flash_attention_launch",
+                             [i, p, p, p, p, i, i, i, i, i, i, i, i,
+                              ctypes.c_float, p])
+    return _entry
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q [B,Sq,H,D]; k/v [B,Sk,Hkv,D] -> [B,Sq,H,D] in q's dtype.
+
+    Launches the CUDA kernel; every tensor must lie on the current CUDA
+    device, contiguous, float32 or bfloat16 alike."""
+    global LAUNCHES
+    if not q.is_cuda:
+        raise ValueError("flash_attention kernel needs CUDA tensors "
+                         "(ops.attention runs the plain version on CPU)")
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if k.shape != (B, Sk, Hkv, D) or v.shape != k.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}; the kernel "
+                         f"takes one of {list(_DTYPE_CODES)}")
+    if min(B, Sq, Sk, Hkv) < 1 or H % Hkv or not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} D={D}: need "
+                         f"non-empty inputs, Hkv | H, D <= {MAX_HEAD_DIM}")
+    if (any(t.device != q.device for t in (k, v))
+            or q.device.index != torch.cuda.current_device()):
+        raise ValueError("flash_attention inputs must lie on the current "
+                         "CUDA device")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("flash_attention inputs must be contiguous")
+    out = torch.empty_like(q)
+    err = _launcher()(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), B, Sq, Sk, H, Hkv, D, int(bool(causal)),
+        int(window or 0), attn_scale(D),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check("flash_attention", err)
+    LAUNCHES += 1
+    return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel forward; backward through the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = ref.naive_attention(*inputs, causal=ctx.causal,
+                                      window=ctx.window)
+            grads = torch.autograd.grad(out, inputs, grad_out)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad[:3])),
+                None, None)

@@ -13,7 +13,20 @@ import numpy as np
 from repro_torch.kernels import codec as _ck
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import fingerprint as _fp
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+
+
+def attention(q, k, v, *, causal=True, window=0):
+    """Train/prefill attention.  q [B,Sq,H,D]; k/v [B,Sk,Hkv,D].
+
+    Differentiable: on CUDA the flash kernel's ``autograd.Function``, on
+    the CPU the plain version under autograd."""
+    if q.is_cuda:
+        return _fa.FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), bool(causal),
+                                        int(window or 0))
+    return ref.naive_attention(q, k, v, causal=causal, window=window)
 
 
 def decode_attention(q, k_cache, v_cache, q_pos, k_pos):

@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the attention functions the port needs.
 
 Counterpart of ``repro.kernels.ref``.  ``decode_attention`` is the plain
-version of the CUDA decode kernel (``kernels/decode_attention.py``): the
-CPU path of ``ops.decode_attention`` and the comparison the kernel is held
-to on the card.  ``chunk_attention`` carries batched replay
+version of the CUDA decode kernel (``kernels/decode_attention.py``) and
+``naive_attention`` that of the CUDA flash kernel
+(``kernels/flash_attention.py``): the CPU paths of ``ops.decode_attention``
+and ``ops.attention``, and the comparisons the kernels are held to on the
+card.  ``chunk_attention`` carries batched replay
 (``attention.attn_append``); it has no kernel, as in the reference.
 """
 from __future__ import annotations
@@ -23,6 +25,33 @@ def _in_dtype_f32(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Round ``x`` to ``dtype`` and widen back: a product in ``dtype`` with
     float32 accumulation (the reference's ``preferred_element_type``)."""
     return x.to(dtype).float()
+
+
+def naive_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Full-materialization GQA attention.  q [B,Sq,H,D]; k/v [B,Sk,Hkv,D].
+
+    Query i attends to key j where ``i >= j`` (``causal``) and, for
+    ``window`` > 0, ``i - j < window``; masked scores are ``NEG_INF``, not
+    ``-inf`` (a row with no valid key averages V, as in the reference).
+    q is scaled by ``attn_scale(D)`` before the product, as the kernel
+    does; the softmax is float32 and the output has q's dtype.
+    """
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qg = (q.float() * attn_scale(D)).reshape(B, Sq, Hkv, g, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window and window > 0:
+        mask &= q_pos - k_pos < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
 def chunk_attention(q, k_cache, v_cache, *, q_pos, k_pos, window: int = 0):

@@ -1,13 +1,15 @@
 """GQA attention block: params, RoPE dispatch and KV-cache management.
 
-Port of ``repro.models.attention`` for the decode paths (``attn_decode``,
-``attn_append``) with a float KV cache.  The reference's sharding
-constraints have no counterpart here, and the int8 KV cache is not
-ported yet.
+Port of ``repro.models.attention``: full-sequence self-attention
+(``attn_forward``, train and prefill, through ``ops.attention``), prompt
+prefill into the cache (``prefill_into_cache``) and the decode paths
+(``attn_decode``, ``attn_append``) with a float KV cache.  The
+reference's sharding constraints have no counterpart here; the int8 KV
+cache and cross-attention (``kv_x``) are not ported yet.
 
 The reference returns a new cache from every call (JAX arrays are
-immutable).  Here the decode and append paths write the new K/V/pos
-slots into the cache tensors **in place** and return the same dict:
+immutable).  Here the prefill, decode and append paths write the new
+K/V/pos slots into the cache tensors **in place** and return the same dict:
 rewriting a 4 MiB cache for one slot per token would multiply the decode
 path's memory traffic.  Callers that keep a cache while the fold goes on
 must clone it (``StatefulConsumer.state_tree`` does).
@@ -52,6 +54,32 @@ def _project_qkv(params, x, kv_x, cfg):
     return q, k, v
 
 
+def _attend(params, x, positions, cfg, *, local: bool, causal: bool,
+            kv_positions=None):
+    """Self-attention of x [B,S,D] -> (output [B,S,D], k, v), k and v
+    after RoPE (what a prefill writes into the cache)."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(params, x, x, cfg)
+    if cfg.rope_kind != "none":
+        q = common.rope_for(cfg, q, positions, local)
+        k = common.rope_for(
+            cfg, k, positions if kv_positions is None else kv_positions, local)
+    window = cfg.window if local else 0
+    out = ops.attention(q, k, v, causal=causal, window=window)
+    out = out.reshape(B, S, -1) @ params["wo"].to(x.dtype)
+    return out, k, v
+
+
+def attn_forward(params, x, positions, cfg, *, local: bool = False,
+                 causal: bool = True, kv_x=None, kv_positions=None):
+    """Full-sequence attention (train / prefill)."""
+    if kv_x is not None:
+        raise NotImplementedError(
+            "cross-attention (kv_x) is not ported yet to repro_torch")
+    return _attend(params, x, positions, cfg, local=local, causal=causal,
+                   kv_positions=kv_positions)[0]
+
+
 # ---------------------------------------------------------------------------
 # KV cache (decode)
 # ---------------------------------------------------------------------------
@@ -72,6 +100,25 @@ def init_kv_cache(cfg, batch: int, seq: int, *, local: bool = False,
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
     }
+
+
+def prefill_into_cache(params, x, positions, cfg, cache, *, local: bool):
+    """Run full attention over the prompt AND write its K/V/pos into the
+    cache (in place).  A prompt of at least ``S_cache`` tokens keeps its
+    last ``S_cache`` positions, rolled so that position p sits at slot
+    ``p % S_cache`` (the ring slot decode writes)."""
+    out, k, v = _attend(params, x, positions, cfg, local=local, causal=True)
+    S_cache = cache["k"].shape[1]
+    S = x.shape[1]
+    entries = {"k": k, "v": v, "pos": positions}
+    for name, a in entries.items():
+        a = a.to(cache[name].dtype)
+        if S >= S_cache:
+            shift = (S - S_cache) % S_cache
+            cache[name].copy_(torch.roll(a[:, S - S_cache:], shift, dims=1))
+        else:
+            cache[name][:, :S] = a
+    return out, cache
 
 
 def attn_append(params, x, positions, cfg, cache, *, local: bool):

@@ -9,7 +9,6 @@ threefry draws (tests load the reference's weights through
 """
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -98,9 +97,13 @@ def init_embedding(gen: torch.Generator, cfg):
 
 
 def embed(params, ids, cfg):
+    """Rows of the table in the compute dtype, times sqrt(d_model) rounded
+    to that dtype (as the reference scales).  ``index_select`` gathers the
+    rows: its backward is a deterministic ``index_add_`` on CUDA."""
     table = params["table"].to(cfg.compute_dtype)
-    x = table[ids]
-    return x * math.sqrt(cfg.d_model)
+    x = table.index_select(0, ids.reshape(-1)).reshape(*ids.shape, -1)
+    # a 0-dim CPU tensor enters a CUDA product as a scalar: no copy
+    return x * torch.tensor(cfg.d_model, dtype=x.dtype).sqrt()
 
 
 def unembed(params, x, cfg, table=None):

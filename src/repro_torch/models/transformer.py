@@ -1,27 +1,35 @@
-"""Decoder LM, dense attention pattern: the paper consumer's model.
+"""Decoder LM, dense attention pattern.
 
-Port of the serving half of ``repro.models.transformer`` for dense
-attention + MLP patterns: ``init_lm``, ``init_cache``, ``lm_decode_step``,
-``lm_append`` and ``_logits``.  The reference scans stacked per-group
-params with ``lax.scan``; here a Python loop walks the groups, indexing
-the same stacked tensors.  Params and caches keep the reference's tree
-keys, stacking, shapes and dtypes (the cache leaves become checkpoint
-registry leaves).
+Port of ``repro.models.transformer`` for dense attention + MLP patterns:
+training (``lm_forward``, ``lm_loss``) and serving (``init_cache``,
+``lm_prefill``, ``lm_decode_step``, ``lm_append``).  The reference scans
+stacked per-group params with ``lax.scan``; here a Python loop walks the
+groups, indexing the same stacked tensors (so ``unroll`` changes
+nothing).  Params and caches keep the reference's tree keys, stacking,
+shapes and dtypes (they become checkpoint registry leaves).
 
-Decode and append update the cache tensors in place and return the same
-cache dict (see ``repro_torch.models.attention``).
+Remat: ``"none"`` keeps every activation; ``"full"`` and ``"dots"`` both
+recompute each layer group in the backward pass
+(``torch.utils.checkpoint``, non-reentrant).  Recomputation is
+deterministic, so the numbers do not change.  JAX's ``dots`` policy
+(keep the products without batch dimensions, recompute the rest) has no
+exact torch counterpart; here it is the same as ``full``.
+
+Prefill, decode and append update the cache tensors in place and return
+the same cache dict (see ``repro_torch.models.attention``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention, common, mlp
 from repro_torch.models.config import BlockKind, ModelConfig
 from repro_torch.models.common import param, zeros_param
-from repro_torch.tree import tree_map
+from repro_torch.tree import flatten, tree_map, unflatten
 
 MIXERS_WITH_KV = (BlockKind.ATTN_GLOBAL, BlockKind.ATTN_LOCAL)
 
@@ -86,7 +94,100 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# serving: cache init / decode / append
+# block application / forward / loss (train)
+# ---------------------------------------------------------------------------
+
+REMAT = ("none", "dots", "full")
+
+
+def _apply_block(blk, x, positions, cfg, i: int, *, enc_out=None,
+                 causal: bool = True):
+    """Full-sequence (train/prefill-without-cache) block application."""
+    if enc_out is not None:
+        raise NotImplementedError(
+            "cross-attention (enc_out) is not ported yet to repro_torch")
+    mixer, ffn = cfg.pattern[i]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = common.rms_norm(x, blk["norm1"], cfg.norm_eps)
+    x = x + attention.attn_forward(blk["attn"], h, positions, cfg,
+                                   local=mixer == BlockKind.ATTN_LOCAL,
+                                   causal=causal)
+    if ffn == BlockKind.MLP:
+        h = common.rms_norm(x, blk["norm2"], cfg.norm_eps)
+        x = x + mlp.mlp_forward(blk["mlp"], h, cfg)
+    return x, aux
+
+
+def _run_groups(groups, x, positions, cfg, *, enc_out=None, causal=True,
+                remat: str = "none", n_positions=None, unroll: bool = False):
+    """Apply the stacked group params in order -> (x, aux).
+
+    The stacked tensors are unbound once, so their gradient is one stack
+    of the per-group gradients.  ``remat`` other than ``"none"``
+    recomputes each group in the backward pass."""
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r}; one of {REMAT}")
+    npos = n_positions or len(cfg.pattern)
+    flat, treedef = flatten(groups)
+    per_group = [t.unbind(0) for t in flat]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(flat[0].shape[0]):
+        group_params = unflatten(treedef, [t[g] for t in per_group])
+
+        def inner(x, group_params=group_params):
+            a = torch.zeros((), dtype=torch.float32, device=x.device)
+            for i in range(npos):
+                x, ai = _apply_block(group_params[f"b{i}"], x, positions,
+                                     cfg, i, enc_out=enc_out, causal=causal)
+                a = a + ai
+            return x, a
+
+        if remat == "none":
+            x, a = inner(x)
+        else:
+            x, a = torch.utils.checkpoint.checkpoint(inner, x,
+                                                     use_reentrant=False)
+        aux = aux + a
+    return x, aux
+
+
+def _embed_inputs(params, batch, cfg):
+    """tokens -> x [B,S,D], positions [B,S] (default: 0..S-1)."""
+    x = common.embed(params["embed"], batch["tokens"], cfg)
+    positions = batch.get("positions")
+    if positions is None:
+        B, S = batch["tokens"].shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device)[None].expand(B, S)
+    return x, positions
+
+
+def lm_forward(params, batch, cfg: ModelConfig, *, remat: str = "none",
+               unroll: bool = False):
+    """batch: tokens [B,S] (+positions). -> (logits, aux)."""
+    x, positions = _embed_inputs(params, batch, cfg)
+    x, aux = _run_groups(params["groups"], x, positions, cfg, remat=remat,
+                         unroll=unroll)
+    return _logits(params, x, cfg), aux
+
+
+def lm_loss(params, batch, cfg: ModelConfig, *, remat: str = "none",
+            unroll: bool = False):
+    """Next-token cross-entropy with masking; returns (loss, metrics)."""
+    logits, aux = lm_forward(params, batch, cfg, remat=remat, unroll=unroll)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    labels = torch.clamp(labels, min=0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    denom = torch.clamp(mask.sum(), min=1.0)
+    xent = -(ll * mask).sum() / denom
+    loss = xent + cfg.router_aux_coef * aux
+    return loss, {"xent": xent, "aux": aux, "tokens": denom}
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode / append
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda"):
@@ -107,13 +208,17 @@ def _logits(params, x, cfg):
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = (params["unembed"] if "unembed" in params
              else params["embed"]["table"])
-    logits = torch.einsum("bsd,vd->bsv", x, table.to(x.dtype)).float()
+    # float32 sums of the compute dtype's products: a product of two bf16
+    # values is exact in float32, so this is the reference's einsum with
+    # ``preferred_element_type=float32``
+    logits = torch.einsum("bsd,vd->bsv", x.float(), table.to(x.dtype).float())
     return common.soft_cap(logits, cfg.logits_softcap)
 
 
 def _run_layers(params, x, positions, cfg, cache, mix):
     """Apply every layer in order; ``mix`` is the attention variant
-    (``attn_decode`` or ``attn_append``), which updates ``cache``."""
+    (``prefill_into_cache``, ``attn_decode`` or ``attn_append``), which
+    updates ``cache``."""
     for g in range(cfg.num_groups):
         for i, (mixer, ffn) in enumerate(cfg.pattern):
             blk = tree_map(lambda a: a[g], params["groups"][f"b{i}"])
@@ -146,4 +251,16 @@ def lm_append(params, tokens, positions, cfg: ModelConfig, cache):
     """
     x = common.embed(params["embed"], tokens, cfg)
     x = _run_layers(params, x, positions, cfg, cache, attention.attn_append)
+    return _logits(params, x, cfg), cache
+
+
+def lm_prefill(params, batch, cfg: ModelConfig, cache, unroll: bool = False):
+    """Process a full prompt, producing logits and a populated cache.
+
+    Full-sequence attention (the flash kernel on the card) plus the cache
+    writes, layer by layer.  ``cache`` is updated in place and returned.
+    """
+    x, positions = _embed_inputs(params, batch, cfg)
+    x = _run_layers(params, x, positions, cfg, cache,
+                    attention.prefill_into_cache)
     return _logits(params, x, cfg), cache

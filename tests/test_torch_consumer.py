@@ -12,7 +12,7 @@ from repro.models import transformer as JT
 from repro_torch import configs as tconfigs
 from repro_torch.broker.broker import Message
 from repro_torch.checkpoint import Registry
-from repro_torch.convert import params_from_jax
+from repro_torch.convert import tree_from_jax
 from repro_torch.core.consumer import StatefulConsumer, measure_replay_speedup
 from repro_torch.tree import leaves
 
@@ -26,7 +26,7 @@ def models():
     jcfg = jconfigs.get_smoke("paper_consumer")
     tcfg = tconfigs.get_smoke("paper_consumer")
     jparams = JT.init_lm(jax.random.PRNGKey(0), jcfg)
-    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    tparams = tree_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     return jcfg, jparams, tcfg, tparams
 
 

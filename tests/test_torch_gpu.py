@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+training and serving paths that launch them, on a card.
 
 Marked ``gpu``: every test takes the ``cuda`` fixture, which skips when
 torch finds no CUDA card.  Run them on a machine with one:
@@ -35,7 +36,8 @@ def _decode_inputs(dev, B, S, H, Hkv, D, dtype, ring, seed=0):
         k_pos = torch.randint(-1, 2 * S, (B, S), generator=gen, device=dev)
         k_pos[:, 0] = q_pos
     else:
-        q_pos = torch.tensor([S // 2, S - 1, S // 3][:B], device=dev)
+        q_pos = torch.tensor([(S // 2, S - 1, S // 3)[b % 3]
+                              for b in range(B)], device=dev)
         k_pos = torch.arange(S, device=dev)[None].repeat(B, 1)
         k_pos = torch.where(k_pos <= q_pos[:, None], k_pos, -1)
     return q, k, v, q_pos.to(torch.int32), k_pos.to(torch.int32)
@@ -45,7 +47,9 @@ def _decode_inputs(dev, B, S, H, Hkv, D, dtype, ring, seed=0):
 @pytest.mark.parametrize("B,S,H,Hkv,D", [(1, 2048, 8, 4, 32),
                                          (2, 256, 8, 2, 64),
                                          (1, 128, 4, 4, 32),
-                                         (3, 1000, 12, 3, 48)])
+                                         (3, 1000, 12, 3, 48),
+                                         # launch.serve: smollm_360m
+                                         (8, 128, 15, 5, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain(cuda, B, S, H, Hkv, D, dtype, ring):
     q, k, v, qp, kp = _decode_inputs(cuda, B, S, H, Hkv, D, dtype, ring)
@@ -137,8 +141,9 @@ def _edge_pair(dev):
 
 
 # the fold's [1, 8192, 128] (one 4 MiB chunk), the serving engine's
-# slot-aligned grid (~[1024, 4, 128]) and ragged odd-R shapes
-CODEC_SHAPES = [(1, 8192), (1024, 4), (3, 77), (2, 1), (5, 129)]
+# slot-aligned grid (~[1024, 4, 128]), the trainer pre-copy's 64 KiB grid
+# ([C, 128, 128]) and ragged odd-R shapes
+CODEC_SHAPES = [(1, 8192), (1024, 4), (32, 128), (3, 77), (2, 1), (5, 129)]
 
 
 @pytest.mark.parametrize("C,R", CODEC_SHAPES)
@@ -209,6 +214,45 @@ def test_fused_leaf_encoding_card_equals_host(cuda, codec):
         assert on_card.blob(c) == get_codec(codec).encode(seg, pseg, dt)
 
 
+@pytest.mark.parametrize("kernel", ["xor_fp_lanes", "int8_fp_lanes"])
+def test_codec_kernel_on_trainer_leaf_grid(cuda, kernel):
+    """A real trainer leaf (the paper consumer's embedding table after six
+    AdamW steps against its parent two steps earlier) on the trainer
+    pre-copy's 64 KiB chunk grid: bit for bit against the plain version,
+    and the card's codec blobs equal to the host codecs'."""
+    import numpy as np
+
+    from repro_torch.broker.broker import Message
+    from repro_torch.checkpoint.codecs import (FusedLeafEncoding, get_codec,
+                                               leaf_raw)
+    from repro_torch.kernels import codec as ck
+    from repro_torch.kernels import ops
+
+    cb = 64 * 1024
+    trainer = _paper_trainer(cuda)()
+    for i in range(6):
+        if i == 4:
+            parent = trainer.state_tree()["params"]["embed"]["table"]
+        trainer.process(Message(i, {"batch_id": i}, 0.0))
+    leaf = trainer.params["embed"]["table"]
+    praw = leaf_raw(parent)
+    cur, par = ops._codec_words(leaf, praw, cb)
+    assert cur.shape[1:] == (128, 128) and cur.shape[0] > 1
+    fn, plain = {"xor_fp_lanes": (ck.xor_fp_lanes, ck.xor_fp_ref),
+                 "int8_fp_lanes": (ck.int8_fp_lanes, ck.int8_fp_ref)}[kernel]
+    for g, w in zip(fn(cur, par), plain(cur, par)):
+        bits = (lambda t: t.view(torch.int32)) if g.is_floating_point() \
+            else (lambda t: t)
+        assert g.dtype == w.dtype and torch.equal(bits(g), bits(w))
+    codec = "xor_rle" if kernel == "xor_fp_lanes" else "int8"
+    dt = np.dtype(np.float32)
+    enc = FusedLeafEncoding(leaf, praw, codec, dt, cb)
+    raw = leaf_raw(leaf)
+    for c in range(-(-len(raw) // cb)):
+        seg, pseg = raw[c * cb:(c + 1) * cb], praw[c * cb:(c + 1) * cb]
+        assert enc.blob(c) == get_codec(codec).encode(seg, pseg, dt)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_row_without_valid_slot_is_mean_of_v(cuda, dtype):
     """A (batch row, kv head) with no valid slot: uniform softmax, the
@@ -226,3 +270,149 @@ def test_decode_kernel_row_without_valid_slot_is_mean_of_v(cuda, dtype):
     torch.testing.assert_close(got[1, 0].float(), mean_v, **tol)
     assert torch.equal(got[0], before[0]) and torch.equal(got[2], before[2])
     assert torch.equal(got, da.decode_attention(q, k, v, qp, kp_empty))
+
+
+# -- flash attention (train / prefill) ----------------------------------------
+
+def _flash_inputs(dev, B, Sq, Sk, H, Hkv, D, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, Sk, Hkv, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, Sk, Hkv, D), generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+FLASH_CASES = [  # (B, Sq, Sk, H, Hkv, D, causal, window)
+    # tests/test_kernels.py's sweep shapes, causal, window 0 and 64
+    *[(B, S, S, H, Hkv, D, True, w)
+      for B, S, H, Hkv, D in [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64),
+                              (1, 256, 4, 1, 128), (2, 128, 6, 3, 32)]
+      for w in (0, 64)],
+    (8, 128, 128, 15, 5, 64, True, 0),   # smollm_360m train
+    (8, 128, 128, 8, 4, 32, True, 0),    # paper_consumer train
+    (8, 32, 32, 15, 5, 64, True, 0),     # smollm_360m prefill
+    (2, 256, 256, 4, 2, 64, True, 40),   # rows whose first tile is masked
+    (2, 100, 100, 6, 2, 48, True, 0),    # ragged
+    (2, 77, 77, 3, 1, 20, True, 0),      # smollm smoke head_dim
+    (2, 128, 48, 4, 2, 16, True, 16),    # rows with no valid key
+    (2, 96, 96, 4, 4, 32, False, 0),     # no mask
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, Hkv, D, causal,
+                                    window, dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _flash_inputs(cuda, B, Sq, Sk, H, Hkv, D, dtype)
+    before = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    again = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 2
+    want = ref.naive_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = TOL32 if dtype == torch.float32 else TOL_BF16
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("window", [0, 24])
+def test_flash_autograd_gradients_equal_plain(cuda, window):
+    q, k, v = _flash_inputs(cuda, 2, 80, 80, 4, 2, 32, torch.float32, seed=3)
+    w = torch.randn(q.shape, device=cuda)
+    grads = []
+    for fn in (ops.attention, ref.naive_attention):
+        leaves_ = [t.clone().requires_grad_() for t in (q, k, v)]
+        (fn(*leaves_, causal=True, window=window) * w).sum().backward()
+        grads.append([t.grad for t in leaves_])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _flash_inputs(cuda, 1, 64, 64, 4, 2, 32, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2))
+    with pytest.raises(ValueError, match="dtypes"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="D <="):
+        fa.flash_attention(*_flash_inputs(cuda, 1, 8, 8, 2, 1, 160,
+                                          torch.float32))
+
+
+def _paper_trainer(dev):
+    from repro_torch import configs
+    from repro_torch.core.trainer_worker import TrainerWorker
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as steplib
+
+    cfg = configs.get_config("paper_consumer")
+    tcfg = steplib.TrainStepConfig(
+        remat="none", lr_peak=1e-3, warmup_steps=5, total_steps=10_000,
+        opt=adamw.AdamWConfig(weight_decay=0.01))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=8)
+    return lambda: TrainerWorker(cfg, tcfg, dcfg, device=dev)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    from repro_torch.broker.broker import Message
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.tree import leaves
+
+    on_card, on_host = _paper_trainer(cuda)(), _paper_trainer("cpu")()
+    on_host.load_state(on_card.state_tree())
+    before = fa.LAUNCHES
+    for i in range(3):
+        on_card.process(Message(i, {"batch_id": i}, 0.0))
+        on_host.process(Message(i, {"batch_id": i}, 0.0))
+        torch.testing.assert_close(on_card.last_loss, on_host.last_loss,
+                                   rtol=1e-5, atol=0)
+    assert fa.LAUNCHES == before + 3 * on_card.cfg.num_layers
+    # sum orders differ (cuBLAS and the kernel against the CPU): Adam's
+    # per-entry normalization turns them into a visible part of lr on
+    # entries whose gradient is near 0 (tests/test_torch_train.py); atol
+    # is 5 % of the three steps' summed lr (2e-4 + 4e-4 + 6e-4)
+    for a, b in zip(leaves(on_card.params), leaves(on_host.params)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=6e-5)
+
+
+def test_trainer_replay_bit_exact_on_card(cuda):
+    from repro_torch.broker.broker import Message
+    from repro_torch.tree import leaves, tree_map
+
+    make = _paper_trainer(cuda)
+    a, b = make(), make()
+    msgs = [Message(i, {"batch_id": i}, 0.0) for i in range(6)]
+    for m in msgs:
+        a.process(m)
+    for m in msgs[:3]:
+        b.process(m)
+    snap = b.state_tree()
+    b.process(msgs[3])  # the snapshot is a copy: training on is harmless
+    c = make()  # restored from host arrays, as from a registry pull
+    c.load_state({k: v if k == "scalars" else
+                  tree_map(lambda t: t.cpu().numpy(), v)
+                  for k, v in snap.items()})
+    for m in msgs[3:]:
+        c.process(m)
+    assert c.state_equal(a)
+    assert all(torch.equal(x, y) for x, y in
+               zip(leaves(c.opt_state), leaves(a.opt_state)))
+
+
+def test_serve_cli_on_card_runs_both_attention_kernels(cuda, capsys):
+    from repro_torch.kernels import decode_attention as da_
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+
+    f0, d0 = fa.LAUNCHES, da_.LAUNCHES
+    assert serve.main(["--smoke", "--requests", "3", "--decode-steps",
+                       "4"]) == 0
+    assert fa.LAUNCHES > f0 and da_.LAUNCHES > d0
+    assert "[serve] decoded 4 steps x 3 requests" in capsys.readouterr().out

@@ -21,7 +21,7 @@ from repro.core import run_migration_experiment as jax_experiment
 from repro.core.consumer import StatefulConsumer as JConsumer
 from repro.models import transformer as JT
 from repro_torch import configs as tconfigs
-from repro_torch.convert import params_from_jax
+from repro_torch.convert import tree_from_jax
 from repro_torch.core import available_strategies
 from repro_torch.core import run_migration_experiment as torch_experiment
 from repro_torch.core.consumer import StatefulConsumer as TConsumer
@@ -72,7 +72,7 @@ def test_model_consumer_rows_match_and_verify(tmp_path, strategy, precopy):
     jcfg = jconfigs.get_smoke("paper_consumer")
     tcfg = tconfigs.get_smoke("paper_consumer")
     jparams = JT.init_lm(jax.random.PRNGKey(0), jcfg)
-    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    tparams = tree_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     kw = dict(seed=0, t_migrate=5.0, settle_time=2.0, precopy=precopy)
     want = jax_experiment(strategy, 4.0, registry_root=str(tmp_path / "j"),
                           worker_factory=lambda: JConsumer(jcfg, jparams, 128),
@@ -118,7 +118,7 @@ def test_model_consumer_precopy_codec_rows_match_and_verify(tmp_path, codec):
     jcfg = jconfigs.get_smoke("paper_consumer")
     tcfg = tconfigs.get_smoke("paper_consumer")
     jparams = JT.init_lm(jax.random.PRNGKey(0), jcfg)
-    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    tparams = tree_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     kw = dict(seed=0, t_migrate=5.0, settle_time=2.0)
     want = jax_experiment("ms2m_cutoff", 4.0,
                           registry_root=str(tmp_path / "j"),

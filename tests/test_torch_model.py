@@ -1,7 +1,7 @@
 """The port's paper-consumer model against the JAX package, on the CPU.
 
 Both packages run the weights of ``T.init_lm(jax.random.PRNGKey(0), cfg)``
-(handed to the port through ``params_from_jax``) on the same tokens.
+(handed to the port through ``tree_from_jax``) on the same tokens.
 """
 import functools
 
@@ -14,7 +14,7 @@ import torch
 from repro import configs as jconfigs
 from repro.models import transformer as JT
 from repro_torch import configs as tconfigs
-from repro_torch.convert import params_from_jax
+from repro_torch.convert import tree_from_jax
 from repro_torch.models import transformer as TT
 from repro_torch.tree import flatten
 
@@ -40,7 +40,7 @@ def _both(which):
         "paper_consumer")
     assert jcfg.name == tcfg.name and jcfg.num_layers == tcfg.num_layers
     jparams = JT.init_lm(jax.random.PRNGKey(0), jcfg)
-    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    tparams = tree_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     return jcfg, jparams, tcfg, tparams
 
 

@@ -40,7 +40,7 @@ from repro_torch.broker.broker import Message as TMessage
 from repro_torch.cluster import Fault as TFault
 from repro_torch.cluster import RebalanceConfig as TRebalanceConfig
 from repro_torch.cluster import run_rebalance_scenario as torch_rebalance
-from repro_torch.convert import params_from_jax
+from repro_torch.convert import tree_from_jax
 from repro_torch.core import MigrationPolicy as TPolicy
 from repro_torch.serving import Request as TRequest
 from repro_torch.serving import ServingEngine as TEngine
@@ -81,7 +81,7 @@ def engines():
     jcfg = jconfigs.get_smoke("paper_consumer")
     tcfg = tconfigs.get_smoke("paper_consumer")
     jparams = JT.init_lm(jax.random.PRNGKey(0), jcfg)
-    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    tparams = tree_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     return jcfg, jparams, tcfg, tparams
 
 
