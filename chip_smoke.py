@@ -23,14 +23,23 @@ Phases, each fatal on failure (no phase catches its own error):
      training and prefill shapes of the paths, at the sweep of
      ``tests/test_kernels.py`` and on masking edge cases (rows whose first
      kv tile is fully masked, ragged lengths, rows with no valid key);
+     both attention kernels also at recurrentgemma_2b's head_dim 256 with
+     10 query heads over 1 kv head (its prefill, a 2304-token prompt past
+     the 2048 window, its decode cache and a local ring past the window).
+     The RG-LRU kernel at ``launch.serve``'s prefill, the 2304-token
+     prompt, ``tests/test_kernels.py``'s shapes, with h0, one step and a
+     ragged width, and its autograd gradient against the plain version's;
   4. model: the paper consumer's decode steps on the card against the
      same steps on the CPU (the plain path); over five seeds, card against
      CPU, the gradients and three AdamW train steps of the paper consumer
      at full width, and the logits of smollm_360m at full width cut to 2
      layers (so that the CPU can run it too) through a forward, a prefill
-     and decode steps at ``launch.serve``'s shapes; each limit lies
-     between the sound readings and a control's (TF32 products, attention
-     without its masks), and the control must fail it;
+     and decode steps at ``launch.serve``'s shapes; over three seeds, the
+     logits of recurrentgemma_2b at full width cut to one 13-layer period
+     (a prefill of 2 x 32 and 4 decode steps, in bf16 and in float32);
+     each limit lies between the sound readings and a control's (TF32
+     products, attention without its masks, the RG-LRU without its
+     carry), and the control must fail it;
   5. path: ``repro_torch.launch.migrate.main`` with its defaults (the
      paper consumer at full width, max_seq 2048), with ``--precopy``,
      with ``--precopy --compression int8`` and with ``--workload serving
@@ -42,7 +51,13 @@ Phases, each fatal on failure (no phase catches its own error):
      (about 13 GB of checkpoint images in a temporary registry under
      ``build/``, checked for room first and deleted after);
      ``repro_torch.launch.serve`` with its defaults (smollm_360m prefill
-     and decode); and a paper-consumer ``TrainerWorker`` at full width
+     and decode); ``launch.serve --arch recurrentgemma_2b`` with its
+     defaults and with a 2304-token prompt, each launching ``rglru``,
+     ``flash_attention`` and ``decode_attention`` the counts its layers
+     give, and the default run's cache after prefill pushed through the
+     registry (fingerprints on the card), pulled, and decoded 8 steps
+     bit-equal to the source; and a paper-consumer ``TrainerWorker`` at
+     full width
      migrated through ``ms2m_statefulset`` and through ``ms2m_precopy``
      with int8 deltas (``benchmarks/delta_precopy.py``'s trainer
      workload), each verified bit for bit against the reference fold.
@@ -173,11 +188,15 @@ def build_phase() -> None:
     dt = time.perf_counter() - t0
     print(f"[build] kernels built and loaded in {dt:.3f} s")
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if ("registers" in line or "spill" in line or line.startswith("==")
+                or "Compiling entry function" in line):
             print(f"[build] {line.strip()}")
 
 
-def decode_inputs(gen, B, S, H, Hkv, D, dtype, ring: bool):
+def decode_inputs(gen, B, S, H, Hkv, D, dtype, ring: bool, window: int = 0):
+    """q, k, v, q_pos, k_pos on the card; ``window`` > 0 marks the ring's
+    slots outside the window empty (-1), as ``attention.attn_decode``
+    does for a local layer."""
     dev = "cuda"
     q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dtype)
@@ -191,6 +210,8 @@ def decode_inputs(gen, B, S, H, Hkv, D, dtype, ring: bool):
     else:
         q_pos = torch.full((B,), S - 1, device=dev)
         k_pos = torch.arange(S, device=dev)[None].repeat(B, 1)
+    if window:
+        k_pos = torch.where(q_pos[:, None] - k_pos < window, k_pos, -1)
     return q, k, v, q_pos.to(torch.int32), k_pos.to(torch.int32)
 
 
@@ -205,20 +226,32 @@ def kernel_phase():
     rows = {}
 
     # -- decode attention -------------------------------------------------
-    cases = [  # (label, B, S, H, Hkv, D, dtype, ring, tol)
-        ("main", 1, 2048, 8, 4, 32, torch.float32, False, DECODE_TOL),
-    # launch.serve's shape: smollm_360m, batch 8, max_seq 128, g = 3
-    ("smollm-serve", 8, 128, 15, 5, 64, torch.bfloat16, False,
-     DECODE_TOL_BF16),
-    ("smollm-serve-ring", 8, 128, 15, 5, 64, torch.bfloat16, True,
-     DECODE_TOL_BF16),
-        ("ragged", 3, 1000, 12, 3, 48, torch.float32, True, DECODE_TOL),
-        ("ragged-bf16", 2, 777, 8, 2, 64, torch.bfloat16, True,
+    cases = [  # (label, B, S, H, Hkv, D, dtype, ring, window, tol)
+        ("main", 1, 2048, 8, 4, 32, torch.float32, False, 0, DECODE_TOL),
+        # launch.serve's shape: smollm_360m, batch 8, max_seq 128, g = 3
+        ("smollm-serve", 8, 128, 15, 5, 64, torch.bfloat16, False, 0,
          DECODE_TOL_BF16),
+        ("smollm-serve-ring", 8, 128, 15, 5, 64, torch.bfloat16, True, 0,
+         DECODE_TOL_BF16),
+        ("ragged", 3, 1000, 12, 3, 48, torch.float32, True, 0, DECODE_TOL),
+        ("ragged-bf16", 2, 777, 8, 2, 64, torch.bfloat16, True, 0,
+         DECODE_TOL_BF16),
+        # recurrentgemma_2b: launch.serve's shape (MQA, g = 10, D = 256),
+        # and the 2048-slot ring of a local layer past its window
+        ("rg-serve", 8, 128, 10, 1, 256, torch.bfloat16, False, 0,
+         DECODE_TOL_BF16),
+        ("rg-ring", 2, 2048, 10, 1, 256, torch.bfloat16, True, 2048,
+         DECODE_TOL_BF16),
+        ("rg-ring-f32", 2, 300, 10, 1, 256, torch.float32, True, 128,
+         DECODE_TOL),
+        ("d200-g12", 3, 100, 12, 1, 200, torch.float32, True, 0,
+         DECODE_TOL),
     ]
     main_err = None
-    for label, B, S, H, Hkv, D, dtype, ring, tol in cases:
-        q, k, v, qp, kp = decode_inputs(gen, B, S, H, Hkv, D, dtype, ring)
+    timed = {}
+    for label, B, S, H, Hkv, D, dtype, ring, window, tol in cases:
+        q, k, v, qp, kp = decode_inputs(gen, B, S, H, Hkv, D, dtype, ring,
+                                        window)
         got = da.decode_attention(q, k, v, qp, kp)
         again = da.decode_attention(q, k, v, qp, kp)
         want = ref.decode_attention(q, k, v, q_pos=qp, k_pos=kp)
@@ -234,35 +267,43 @@ def kernel_phase():
               f"decode {label}: two launches differ")
         if label == "main":
             main_err = err
-            main_inputs = (q, k, v, qp, kp)
-    q, k, v, qp, kp = main_inputs
-    B, _, H, D = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
-    ms = graph_ms(lambda: da.decode_attention(q, k, v, qp, kp))
-    plain_ms = graph_ms(lambda: ref.decode_attention(q, k, v, q_pos=qp,
-                                                     k_pos=kp))
-    qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    mask = ((kp >= 0) & (kp <= qp[:, None]))[:, None, None, :]
-    lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
-                                         enable_gqa=True).transpose(1, 2)
-    check(torch.allclose(lib, ref.decode_attention(q, k, v, q_pos=qp,
-                                                   k_pos=kp), **DECODE_TOL),
-          "SDPA yardstick disagrees with the plain decode version")
-    library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask, enable_gqa=True))
-    n_valid = int(((kp >= 0) & (kp <= qp[:, None])).sum())  # rows read
-    nbytes = (q.nbytes * 2 + 2 * n_valid * Hkv * D * k.element_size()
-              + qp.nbytes + kp.nbytes)
-    b_ms, b_by = bound(nbytes, 4 * B * H * (n_valid // B) * D)
+        if label in ("main", "rg-serve", "rg-ring"):
+            timed[label] = (q, k, v, qp, kp, err, tol)
+    by_shape = {}
+    for label, (q, k, v, qp, kp, err, tol) in timed.items():
+        B, _, H, D = q.shape
+        S, Hkv = k.shape[1], k.shape[2]
+        ms = graph_ms(lambda: da.decode_attention(q, k, v, qp, kp))
+        plain_ms = graph_ms(lambda: ref.decode_attention(q, k, v, q_pos=qp,
+                                                         k_pos=kp))
+        qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        mask = ((kp >= 0) & (kp <= qp[:, None]))[:, None, None, :]
+        lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                             enable_gqa=True).transpose(1, 2)
+        check(torch.allclose(lib.float(), ref.decode_attention(
+            q, k, v, q_pos=qp, k_pos=kp).float(), **tol),
+            f"SDPA yardstick disagrees with the plain decode version "
+            f"({label})")
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True))
+        n_valid = int(((kp >= 0) & (kp <= qp[:, None])).sum())  # rows read
+        nbytes = (q.nbytes * 2 + 2 * n_valid * Hkv * D * k.element_size()
+                  + qp.nbytes + kp.nbytes)
+        b_ms, b_by = bound(nbytes, 4 * H * n_valid * D)
+        by_shape[label] = dict(shape=[B, S, H, Hkv, D], max_abs_err=err,
+                               ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=library_ms)
+        print(f"[kernels] decode_attention {label}: {ms * 1e3:.2f} us "
+              f"kernel, {plain_ms * 1e3:.2f} us plain, {library_ms * 1e3:.2f}"
+              f" us SDPA, bound {b_ms * 1e3:.3f} us ({b_by}, {nbytes} bytes)")
+    main = by_shape["main"]
     rows["decode_attention"] = dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:80",
-        max_abs_err=main_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=library_ms)
-    print(f"[kernels] decode_attention main: {ms * 1e3:.2f} us kernel, "
-          f"{plain_ms * 1e3:.2f} us plain, {library_ms * 1e3:.2f} us SDPA, "
-          f"bound {b_ms * 1e3:.3f} us ({b_by}, {nbytes} bytes)")
+        max_abs_err=main_err, ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"], by_shape=by_shape)
 
     # -- chunk fingerprint lanes -------------------------------------------
     main_words = None
@@ -301,6 +342,7 @@ def kernel_phase():
           f"({b_by})")
     rows.update(codec_kernels())
     rows["flash_attention"] = flash_kernel(gen)
+    rows["rglru"] = rglru_kernel(gen)
     decode_empty_row(gen)
     print("[kernels] " + json.dumps(sorted(rows)))
     return rows
@@ -323,7 +365,17 @@ FLASH_CASES = [  # (label, B, Sq, Sk, H, Hkv, D, dtype, causal, window)
     ("ragged", 2, 100, 100, 6, 2, 48, torch.float32, True, 0),
     ("no-valid-key", 2, 128, 48, 4, 2, 16, torch.float32, True, 16),
     ("no-mask", 2, 96, 96, 4, 4, 32, torch.float32, False, 0),
+    # recurrentgemma_2b's local layers (MQA, g = 10, D = 256, window
+    # 2048): launch.serve's prefill, and a 2304-token prompt where the
+    # window bites
+    ("rg-prefill", 8, 32, 32, 10, 1, 256, torch.bfloat16, True, 2048),
+    ("rg-long-prefill", 2, 2304, 2304, 10, 1, 256, torch.bfloat16, True,
+     2048),
+    ("d256-f32-window", 2, 100, 100, 10, 1, 256, torch.float32, True, 40),
+    ("d256-f32-no-valid-key", 2, 72, 40, 4, 2, 256, torch.float32, True, 16),
+    ("d200-ragged", 1, 77, 77, 3, 1, 200, torch.float32, True, 0),
 ]
+FLASH_TIMED = ("smollm-train", "paper-train", "rg-prefill", "rg-long-prefill")
 
 
 def flash_work(q, k, causal: bool, window: int):
@@ -342,16 +394,30 @@ def flash_work(q, k, causal: bool, window: int):
     return nbytes, 4 * B * H * D * int(keep.sum())
 
 
+def sdpa_mask(Sq, Sk, causal: bool, window: int):
+    """The boolean mask ``F.scaled_dot_product_attention`` needs for the
+    plain version's causal and window masks (None where none bites)."""
+    qp = torch.arange(Sq, device="cuda")[:, None]
+    kp = torch.arange(Sk, device="cuda")[None, :]
+    keep = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
+    if causal:
+        keep &= qp >= kp
+    if window:
+        keep &= qp - kp < window
+    return keep
+
+
 def flash_kernel(gen):
     """The flash kernel against its plain version at every case, two
-    launches bit-equal; times at the smollm and paper-consumer training
-    shapes, the first of them the table's row."""
+    launches bit-equal; times at ``FLASH_TIMED``'s shapes, the first of
+    them the table's row."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     row = None
+    by_shape = {}
     for label, B, Sq, Sk, H, Hkv, D, dtype, causal, window in FLASH_CASES:
         q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
         k = torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda").to(dtype)
@@ -370,27 +436,38 @@ def flash_kernel(gen):
               f"flash {label}: kernel disagrees with the plain version "
               f"({err:.3e}, tolerance {tol})")
         check(torch.equal(got, again), f"flash {label}: two launches differ")
-        if not label.endswith("-train"):
+        if label not in FLASH_TIMED:
             continue
-        ms = graph_ms(lambda: fa.flash_attention(q, k, v, causal=True))
-        plain_ms = graph_ms(lambda: ref.naive_attention(q, k, v))
+        # a 2304-token call takes milliseconds: fewer calls per graph
+        reps = 50 if Sq <= 128 else 5
+        ms = graph_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                                 window=window), reps=reps)
+        plain_ms = graph_ms(lambda: ref.naive_attention(
+            q, k, v, causal=causal, window=window), reps=reps)
         qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
-        lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                             enable_gqa=True).transpose(1, 2)
+        if window and window < Sk:
+            lib_kw = dict(attn_mask=sdpa_mask(Sq, Sk, causal, window))
+        else:
+            lib_kw = dict(is_causal=causal)
+        lib = F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True,
+                                             **lib_kw).transpose(1, 2)
         # the yardstick must compute the same function; its own internal
         # precision is the library's business, hence the loose bound
         check(torch.allclose(lib.float(), want.float(), **FLASH_TOL_BF16),
               f"SDPA yardstick disagrees with the plain flash version "
               f"({label})")
         library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True, enable_gqa=True))
-        nbytes, ops_n = flash_work(q, k, True, 0)
+            qs, ks, vs, enable_gqa=True, **lib_kw), reps=reps)
+        nbytes, ops_n = flash_work(q, k, causal, window)
         peak = PEAK_BF16_OPS_S if dtype == torch.bfloat16 else PEAK_F32_OPS_S
         b_ms, b_by = bound(nbytes, ops_n, peak)
         print(f"[kernels] flash_attention {label}: {ms * 1e3:.2f} us kernel, "
               f"{plain_ms * 1e3:.2f} us plain, {library_ms * 1e3:.2f} us "
               f"SDPA, bound {b_ms * 1e3:.3f} us ({b_by}, {nbytes} bytes, "
               f"{ops_n} operations)")
+        by_shape[label] = dict(shape=[B, Sq, Sk, H, Hkv, D], max_abs_err=err,
+                               ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=library_ms)
         if row is None:
             row = dict(
                 name="flash_attention", route="cuda",
@@ -398,6 +475,108 @@ def flash_kernel(gen):
                 replaces="src/repro/kernels/flash_attention.py:102",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms)
+    row["by_shape"] = by_shape
+    return row
+
+
+RGLRU_CASES = [  # (label, B, S, W, dtype, h0: None, "zeros" or "random")
+    # launch.serve's prefill (a fresh cache's h is a zero tensor), and the
+    # 2304-token prompt
+    ("rg-serve", 8, 32, 2560, torch.bfloat16, "zeros"),
+    ("rg-long", 2, 2304, 2560, torch.bfloat16, "zeros"),
+    # tests/test_kernels.py's shapes
+    *[(f"sweep-{B}x{S}x{W}", B, S, W, dt, None)
+      for B, S, W in [(1, 64, 128), (2, 128, 256), (1, 96, 512)]
+      for dt in (torch.float32, torch.bfloat16)],
+    ("h0", 2, 128, 256, torch.float32, "random"),
+    ("h0-bf16", 2, 128, 256, torch.bfloat16, "random"),
+    ("one-step", 3, 1, 2560, torch.bfloat16, "random"),
+    ("ragged-width", 2, 33, 70, torch.float32, "random"),
+]
+RGLRU_TIMED = ("rg-serve", "rg-long")
+RGLRU_TOL = dict(rtol=1e-5, atol=1e-6)        # float32 state, libm ulps
+RGLRU_TOL_BF16 = dict(rtol=8e-3, atol=1e-6)   # one bf16 rounding of h_seq
+# operations per (b, t, w): two sigmoids, log_at, two exps, 1 - e, max,
+# sqrt, two products for gated, then a product and a sum for h (the
+# log_sigmoid of a_param is per w); about 20 counting a sigmoid as 3
+RGLRU_OPS_PER_ELEMENT = 20
+
+
+def rglru_kernel(gen):
+    """The RG-LRU kernel against its plain version at every case (both
+    outputs), two launches bit-equal, the autograd gradient equal to the
+    plain version's; times at ``RGLRU_TIMED``, the first the row's."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru as rg
+
+    row, by_shape = None, {}
+    for label, B, S, W, dtype, h0 in RGLRU_CASES:
+        x, ga, gx = (torch.randn((B, S, W), generator=gen, device="cuda")
+                     .to(dtype) for _ in range(3))
+        a = torch.randn((W,), generator=gen, device="cuda")
+        h = {None: None,
+             "zeros": torch.zeros((B, W), device="cuda"),
+             "random": torch.randn((B, W), generator=gen, device="cuda")}[h0]
+        got = rg.rglru(x, a, ga, gx, h)
+        again = rg.rglru(x, a, ga, gx, h)
+        want = ref.naive_rglru(x, a, ga, gx, h)
+        torch.cuda.synchronize()
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+        print(f"[kernels] rglru {label} [{B},{S},{W}] {str(dtype)[6:]} "
+              f"h0={h0}: max_abs_err={err:.3e}")
+        check(got[0].dtype == dtype and got[1].dtype == torch.float32,
+              f"rglru {label}: output dtypes {got[0].dtype}, {got[1].dtype}")
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"rglru {label}: non-finite")
+        tol = RGLRU_TOL if dtype == torch.float32 else RGLRU_TOL_BF16
+        check(torch.allclose(got[0].float(), want[0].float(), **tol)
+              and torch.allclose(got[1], want[1], **RGLRU_TOL),
+              f"rglru {label}: kernel disagrees with the plain version "
+              f"({err:.3e}, tolerance {tol})")
+        check(all(torch.equal(g, w) for g, w in zip(got, again)),
+              f"rglru {label}: two launches differ")
+        if label not in RGLRU_TIMED:
+            continue
+        # the plain version is a Python loop of S steps: one call a graph
+        # at the long prompt
+        reps = 50 if S <= 32 else 1
+        ms = graph_ms(lambda: rg.rglru(x, a, ga, gx, h))
+        plain_ms = graph_ms(lambda: ref.naive_rglru(x, a, ga, gx, h),
+                            reps=reps, graphs=5 if S <= 32 else 2)
+        nbytes = (4 * x.nbytes + a.nbytes + 2 * B * W * 4)  # h0 and h_last
+        b_ms, b_by = bound(nbytes, RGLRU_OPS_PER_ELEMENT * B * S * W)
+        print(f"[kernels] rglru {label}: {ms * 1e3:.2f} us kernel, "
+              f"{plain_ms * 1e3:.2f} us plain, bound {b_ms * 1e3:.3f} us "
+              f"({b_by}, {nbytes} bytes)")
+        by_shape[label] = dict(shape=[B, S, W], max_abs_err=err, ms=ms,
+                               plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=None)
+        if row is None:
+            row = dict(name="rglru", route="cuda",
+                       source="src/repro_torch/csrc/rglru.cu",
+                       replaces="src/repro/kernels/rglru.py:63",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    # the gradient: RGLRUScan's backward is the plain version's autograd
+    x, ga, gx = (torch.randn((2, 40, 96), generator=gen, device="cuda")
+                 for _ in range(3))
+    a, h = (torch.randn(s, generator=gen, device="cuda") for s in ((96,),
+                                                                   (2, 96)))
+    wy = [torch.randn((2, 40, 96), generator=gen, device="cuda"),
+          torch.randn((2, 96), generator=gen, device="cuda")]
+    grads = []
+    for fn in (ops.rglru_scan, ref.naive_rglru):
+        leaves = [t.clone().requires_grad_() for t in (x, a, ga, gx, h)]
+        out = fn(*leaves)
+        sum((o * w).sum() for o, w in zip(out, wy)).backward()
+        grads.append([t.grad for t in leaves])
+    check(all(torch.equal(p, q) for p, q in zip(*grads)),
+          "rglru: the kernel's autograd gradients differ from the plain "
+          "version's")
+    print("[kernels] rglru autograd: gradients bit-equal to the plain "
+          "version's")
+    row["by_shape"] = by_shape
     return row
 
 
@@ -838,8 +1017,24 @@ def train_model_phase() -> None:
                   "see it")
 
 
+# recurrentgemma_2b at full width cut to one 13-layer period of its
+# pattern (9 RG-LRU and 4 local-attention layers, so that the CPU runs it
+# too): relative L2 error of the logits of a prefill of 2 x 32 tokens and
+# of 4 decode steps, card against CPU, worst over RG_SEEDS, in its bf16
+# compute and in float32; the control drops the recurrence's carry
+# (h_t = gated_t).  PERF.md (its recurrentgemma finding), on an H100
+# over seeds 0-2, sound / control: bf16 prefill 1.42e-2-1.45e-2 / 2.73e-2-2.80e-2, decode
+# 1.43e-2-1.47e-2 / 2.82e-2-2.90e-2 (with random weights the carry
+# a_t * h is a few percent of h, so the bf16 limit has less than 2x room
+# on either side); float32 prefill 1.79e-6-1.80e-6 / 2.01e-2-2.12e-2,
+# decode 1.21e-6-1.23e-6 / 2.14e-2-2.23e-2 (100x room on each side).
+RG_LAYERS = 13
+RG_SEEDS = (0, 1, 2)
+RG_LIMITS = {"bfloat16": dict(prefill=2e-2, decode=2e-2),
+             "float32": dict(prefill=2e-4, decode=2e-4)}
+
 KERNELS = ("decode_attention", "fingerprint_lanes", "xor_fp_lanes",
-           "int8_fp_lanes", "flash_attention")
+           "int8_fp_lanes", "flash_attention", "rglru")
 CODEC = ("xor_fp_lanes", "int8_fp_lanes")
 
 
@@ -848,21 +1043,23 @@ def _counters():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import fingerprint as fp
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
 
-    return ck, da, fp, fa
+    return ck, da, fp, fa, rg
 
 
 def reset_counts() -> None:
-    ck, da, fp, fa = _counters()
-    da.LAUNCHES = fp.LAUNCHES = fa.LAUNCHES = 0
+    ck, da, fp, fa, rg = _counters()
+    da.LAUNCHES = fp.LAUNCHES = fa.LAUNCHES = rg.LAUNCHES = 0
     for name in ck.LAUNCHES:
         ck.LAUNCHES[name] = 0
 
 
 def read_counts() -> dict:
-    ck, da, fp, fa = _counters()
+    ck, da, fp, fa, rg = _counters()
     return {"decode_attention": da.LAUNCHES, "fingerprint_lanes": fp.LAUNCHES,
-            **ck.LAUNCHES, "flash_attention": fa.LAUNCHES}
+            **ck.LAUNCHES, "flash_attention": fa.LAUNCHES,
+            "rglru": rg.LAUNCHES}
 
 
 def run_path(label, fn, needs):
@@ -978,6 +1175,260 @@ def train_paths(paths) -> None:
           "steps")
 
 
+def rg_config(dtype: str = "bfloat16"):
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config("recurrentgemma_2b"),
+                               num_layers=RG_LAYERS, dtype=dtype)
+
+
+def rg_run(seed: int, params, device: str, dtype: str):
+    """``lm_prefill`` of 2 prompts of 32 tokens into a max_seq-128 cache,
+    then 4 teacher-forced ``lm_decode_step`` calls, from ``params`` (on
+    ``device``), computing in ``dtype``.  -> (prefill, decode logits),
+    float32."""
+    import numpy as np
+
+    from repro_torch.convert import to_tensor
+    from repro_torch.models import transformer as T
+
+    cfg = rg_config(dtype)
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (2, 36)).astype(np.int32)
+    with torch.no_grad():
+        cache = T.init_cache(cfg, 2, 128, device=device)
+        pre, cache = T.lm_prefill(
+            params, {"tokens": to_tensor(toks[:, :32], device)}, cfg, cache)
+        dec = []
+        for t in range(32, 36):
+            pos = torch.full((2, 1), t, dtype=torch.int32, device=device)
+            lg, cache = T.lm_decode_step(
+                params, to_tensor(toks[:, t:t + 1], device), pos, cfg, cache)
+            dec.append(lg)
+    return pre.float(), torch.cat(dec, 1).float()
+
+
+@contextlib.contextmanager
+def carry_dropped():
+    """The control of the recurrentgemma check: the RG-LRU with its carry
+    dropped (h_t = gated_t).  Prefill runs each step as a scan of its own
+    from zero state (through the kernel on the card); a decode step
+    starts from zero state."""
+    from repro_torch.kernels import ops, ref
+
+    scan, step = ops.rglru_scan, ref.rglru_decode_step
+
+    def no_carry_scan(x, a_param, gate_a, gate_x, h0=None, *, c=8.0):
+        outs = [scan(x[:, t:t + 1], a_param, gate_a[:, t:t + 1],
+                     gate_x[:, t:t + 1], None, c=c)
+                for t in range(x.shape[1])]
+        return torch.cat([o[0] for o in outs], 1), outs[-1][1]
+
+    def no_carry_step(h, x, a_param, gate_a, gate_x, *, c=8.0):
+        return step(torch.zeros_like(h), x, a_param, gate_a, gate_x, c=c)
+
+    ops.rglru_scan, ref.rglru_decode_step = no_carry_scan, no_carry_step
+    try:
+        yield
+    finally:
+        ops.rglru_scan, ref.rglru_decode_step = scan, step
+
+
+def rg_model_phase() -> None:
+    """Card against CPU, over ``RG_SEEDS`` and in each dtype of
+    ``RG_LIMITS``: recurrentgemma_2b's logits at full width cut to
+    ``RG_LAYERS`` layers.  The weights are drawn once a seed on the CPU
+    (``init_lm`` draws there for every device) and copied to the card.
+    Each limit must hold for every seed and fail for the control
+    (``carry_dropped``) at every seed."""
+    from repro_torch.models import BlockKind
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    cfg = rg_config()
+    n_rec = sum(m == BlockKind.RGLRU for m, _ in cfg.pattern)
+    n_attn = len(cfg.pattern) - n_rec
+    sound = {dtype: [] for dtype in RG_LIMITS}
+    ctl = {dtype: [] for dtype in RG_LIMITS}
+    for seed in RG_SEEDS:
+        t0 = time.perf_counter()
+        params = T.init_lm(cfg, seed=seed, device="cpu")
+        on_card = tree_map(lambda t: t.to("cuda"), params)
+        print(f"[model] recurrentgemma_2b seed {seed}: init "
+              f"{time.perf_counter() - t0:.1f} s")
+        for dtype in RG_LIMITS:
+            t0 = time.perf_counter()
+            host = rg_run(seed, params, "cpu", dtype)
+            t_host = time.perf_counter() - t0
+            for control, out in ((False, sound), (True, ctl)):
+                reset_counts()
+                with carry_dropped() if control else contextlib.nullcontext():
+                    got = rg_run(seed, on_card, "cuda", dtype)
+                n = read_counts()
+                want = (n_rec * (32 if control else 1), n_attn, 4 * n_attn)
+                check((n["rglru"], n["flash_attention"],
+                       n["decode_attention"]) == want,
+                      f"recurrentgemma check: launches {n}, want rglru, "
+                      f"flash and decode {want}")
+                check(all(bool(torch.isfinite(g).all()) for g in got),
+                      "recurrentgemma logits on the card not finite")
+                out[dtype].append({name: _rel_norm(g, h) for name, g, h in
+                                   zip(("prefill", "decode"), got, host)})
+                label = "carry dropped (control)" if control else "card vs CPU"
+                print(f"[model] recurrentgemma_2b {RG_LAYERS} layers {dtype}, "
+                      f"{label}, seed {seed}: " + " ".join(
+                          f"{k}={v:.3e}" for k, v in out[dtype][-1].items())
+                      + (f" (CPU run {t_host:.1f} s)" if not control else ""))
+        del params, on_card
+    for dtype, limits in RG_LIMITS.items():
+        for name, limit in limits.items():
+            worst = max(r[name] for r in sound[dtype])
+            least = min(r[name] for r in ctl[dtype])
+            print(f"[model] recurrentgemma_2b {dtype} {name}: worst sound "
+                  f"{worst:.3e}, limit {limit:.1e}, least control "
+                  f"{least:.3e}")
+            check(worst <= limit, f"recurrentgemma_2b {dtype}: card "
+                  f"disagrees with the CPU ({name} {worst:.3e} > "
+                  f"{limit:.1e})")
+            check(least > limit, f"recurrentgemma_2b {dtype}: the control "
+                  f"passes the {name} limit ({least:.3e} <= {limit:.1e}); "
+                  "the check cannot see it")
+
+
+def rg_serve_paths(paths) -> None:
+    """``launch.serve --arch recurrentgemma_2b`` at full width with the
+    reference's defaults and with a 2304-token prompt (the local layers'
+    2048-slot ring rolls and their window bites): each prints the
+    reference's lines and launches, per prefill, ``rglru`` once per
+    RG-LRU layer and ``flash_attention`` once per local layer, and per
+    decode step ``decode_attention`` once per local layer.  The default
+    run's cache after its prefill then goes through the registry
+    (``rg_ms2m_state``)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import BlockKind
+    from repro_torch.tree import tree_map
+
+    cfg = configs.get_config("recurrentgemma_2b")
+    n_rec = cfg.num_groups * sum(m == BlockKind.RGLRU for m, _ in cfg.pattern)
+    n_attn = cfg.num_layers - n_rec
+    captured = {}
+    plain_build = serve.steplib.build_prefill_step
+
+    def capturing_build(c):
+        prefill = plain_build(c)
+
+        def prefill_step(params, cache, batch):
+            logits, cache = prefill(params, cache, batch)
+            captured.update(params=params, logits=logits.clone(),
+                            cache=tree_map(torch.clone, cache))
+            return logits, cache
+
+        return prefill_step
+
+    runs = (("serve-rg", ["--arch", "recurrentgemma_2b"], 8, 32, 32),
+            ("serve-rg-long", ["--arch", "recurrentgemma_2b", "--requests",
+                               "2", "--prompt-len", "2304", "--max-seq",
+                               "2560", "--decode-steps", "16"], 2, 2304, 16))
+    for label, argv, B, prompt, steps in runs:
+        serve.steplib.build_prefill_step = (capturing_build
+                                            if label == "serve-rg"
+                                            else plain_build)
+        try:
+            launches, (rc, text), wall = run_path(
+                label, lambda: _captured(serve.main, argv),
+                ("rglru", "flash_attention", "decode_attention"))
+        finally:
+            serve.steplib.build_prefill_step = plain_build
+        paths[label] = launches
+        check(rc == 0, f"{label}: launch.serve exited {rc}")
+        for line in (f"[serve] prefill {prompt} tokens x {B} requests: ",
+                     f"[serve] decoded {steps} steps x {B} requests: ",
+                     "[serve] sample continuation (request 0): "):
+            check(line in text, f"{label}: no line {line!r}")
+        want = dict(rglru=n_rec, flash_attention=n_attn,
+                    decode_attention=steps * n_attn)
+        check(all(launches[k] == (want.get(k, 0)) for k in launches),
+              f"{label}: launches {launches}, want {want} (one prefill, "
+              f"{steps} decode steps)")
+        print(f"[path] {label}: rc={rc} per prefill rglru={n_rec} "
+              f"flash_attention={n_attn}; per decode step "
+              f"decode_attention={n_attn}")
+        if label == "serve-rg":
+            paths["serve-rg-ms2m"] = rg_ms2m_state(cfg, captured)
+            captured.clear()
+
+
+def rg_ms2m_state(cfg, captured) -> dict:
+    """The recurrentgemma serving cache right after the default run's
+    prefill, pushed through the port's ``Registry`` (its fingerprints
+    taken on the card) and pulled into a fresh cache; 8 greedy decode
+    steps from each must give bit-equal tokens and logits.  -> launches.
+    Prints the image's bytes beside those of a KV cache of every layer
+    at the same batch and length (the O(1)-state case)."""
+    from repro_torch.checkpoint.registry import Registry
+    from repro_torch.convert import to_tensor
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as T
+    from repro_torch.train import step as steplib
+    from repro_torch.tree import flatten, tree_map, unflatten
+
+    params, logits, cache = (captured[k] for k in ("params", "logits",
+                                                   "cache"))
+    B, prompt = logits.shape[0], logits.shape[1]
+    max_seq = 128  # launch.serve's default
+    decode = steplib.build_decode_step(cfg)
+
+    def run():
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as root:
+            reg = Registry(root)
+            report = reg.push_image({"cache": cache})
+            trees, pulled = reg.pull_image(report.image_id)
+        fresh = T.init_cache(cfg, B, max_seq, device="cuda")
+        got, treedef = flatten(trees["cache"])
+        _, fresh_def = flatten(fresh)
+        check(treedef == fresh_def, "ms2m: pulled cache tree differs")
+        restored = unflatten(fresh_def, [to_tensor(a, "cuda") for a in got])
+        for a, b in zip(flatten(restored)[0], flatten(cache)[0]):
+            check(a.dtype == b.dtype and a.shape == b.shape
+                  and torch.equal(a, b), "ms2m: pulled leaf differs")
+        outs = []
+        for c in (tree_map(torch.clone, cache), restored):
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            pos = torch.full((B, 1), prompt, dtype=torch.int32, device="cuda")
+            toks, lgs = [], []
+            for _ in range(8):
+                lg, c = decode(params, c, tok, pos)
+                tok = torch.argmax(lg, dim=-1).to(torch.int32)
+                pos = pos + 1
+                toks.append(tok)
+                lgs.append(lg)
+            outs.append((torch.cat(toks, 1), torch.cat(lgs, 1), c))
+        return report, pulled, outs
+
+    launches, (report, pulled, outs), wall = run_path(
+        "serve-rg-ms2m", run, ("fingerprint_lanes", "decode_attention"))
+    (ta, la, ca), (tb, lb, cb) = outs
+    check(torch.equal(ta, tb) and torch.equal(la, lb),
+          "ms2m: decoding from the pulled cache differs from the source")
+    check(all(torch.equal(a, b) for a, b in zip(flatten(ca)[0],
+                                                flatten(cb)[0])),
+          "ms2m: caches differ after 8 decode steps")
+    item = torch.tensor([], dtype=cfg.compute_dtype).element_size()
+    kv_bytes = cfg.num_layers * B * max_seq * (
+        2 * cfg.num_kv_heads * cfg.resolved_head_dim * item + 4)
+    print(f"[path] serve-rg-ms2m: image {report.total_bytes} bytes "
+          f"({report.num_chunks} chunks, pulled {pulled}); a KV cache of all "
+          f"{cfg.num_layers} layers at batch {B}, {max_seq} slots would "
+          f"hold {kv_bytes} bytes ({report.total_bytes / kv_bytes:.3f}x); "
+          f"8 decode steps from the pulled cache bit-equal to the source's "
+          f"(tokens {ta[0].tolist()})")
+    return launches
+
+
 def trainer_migration_paths(paths) -> None:
     """A paper-consumer ``TrainerWorker`` at full width migrated through
     ``ms2m_statefulset`` and through ``ms2m_precopy`` with int8 deltas,
@@ -1035,6 +1486,7 @@ def main() -> int:
     rows = kernel_phase()
     model_phase()
     train_model_phase()
+    rg_model_phase()
     fold = ("decode_attention", "fingerprint_lanes")
     paths = {
         "default": path_phase([], "default", fold),
@@ -1047,6 +1499,7 @@ def main() -> int:
             ("decode_attention", "xor_fp_lanes", "int8_fp_lanes")),
     }
     train_paths(paths)
+    rg_serve_paths(paths)
     trainer_migration_paths(paths)
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in paths.values())
@@ -1055,7 +1508,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}
+    print(json.dumps({"kernels": [{**{k: row[k] for k in keys},
+                                   "by_shape": row.get("by_shape")}
                                   for row in rows.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """Architecture registry of the port.
 
 Same interface as ``repro.configs``.  Ported: ``paper_consumer`` (the
-paper's evaluation microservice, the model the migration path runs) and
-``smollm_360m`` (the training and serving CLIs' default); every other
-architecture name raises until its model family is ported.
+paper's evaluation microservice, the model the migration path runs),
+``smollm_360m`` (the training and serving CLIs' default) and
+``recurrentgemma_2b`` (the RG-LRU + local-attention hybrid, served);
+every other architecture name raises until its model family is ported.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ ARCHS: List[str] = [
     "xlstm_350m",
     "paper_consumer",  # the paper's own evaluation microservice model
 ]
-PORTED = ("paper_consumer", "smollm_360m")
+PORTED = ("paper_consumer", "smollm_360m", "recurrentgemma_2b")
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 

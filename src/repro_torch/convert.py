@@ -2,9 +2,11 @@
 
 ``tree_from_jax`` turns a tree of the reference's numpy leaves into the
 port's tree of tensors: ``repro``'s ``T.init_lm(...)`` params into the
-port's params (plain dicts of tensors), and its AdamW state
-(``adamw_init``/``adamw_update``) into the port's optimizer state, so
-both packages compute and train from the same point in the parity tests.  The reference's ``ParamLeaf`` wrappers (anything
+port's params (plain dicts of tensors), its AdamW state
+(``adamw_init``/``adamw_update``) into the port's optimizer state, and
+its serving caches (KV rings, RG-LRU ``h`` and ``conv``, bfloat16 leaves
+included) into the port's, so both packages compute, train and serve
+from the same point in the parity tests.  The reference's ``ParamLeaf`` wrappers (anything
 with ``value`` and ``axes`` attributes) are unwrapped; this module
 imports nothing of ``repro`` or JAX.
 """

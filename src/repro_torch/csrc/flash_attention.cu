@@ -21,7 +21,8 @@
 // spends most of its time on shared-memory traffic.
 //
 // What the design does: one block per (q tile of 64 rows, q head, batch
-// row), four warps of 16 rows each.  The kv tiles of 64 keys are walked
+// row), four warps of 16 rows each (up to head_dim 128; see below for
+// 256).  The kv tiles of 64 keys are walked
 // in order through shared memory, widened to float32 on load (K rows
 // padded to D + 1 floats, so the 32 lanes' key reads fall in 32 banks).
 // Each lane scores two keys against its warp's 16 rows, the warp reduces
@@ -32,6 +33,17 @@
 // kernel's `run` predicate does.  No atomics and a fixed walk: the sums'
 // order is a pure function of the shape, so two launches give the same
 // bits (replay's bit-exact verification needs that).
+//
+// Head dimension 256 (recurrentgemma_2b): a lane keeps ROWS rows of
+// DPL = D / 32 output columns in registers, and the block's tiles are
+// float32 in shared memory.  At ROWS 16 and D 256 that would be 128
+// accumulators a lane and 213,248 bytes of shared memory a block, so above
+// head_dim 128 a warp takes 8 rows (a block 32 query rows): 64
+// accumulators and 172,288 bytes.  One block then fills an SM's shared
+// memory, so this shape runs one block (4 warps) an SM.  Up to 128 the
+// kernel is the same code at ROWS 16 as before, with the same sums.
+// Multi-query attention (10 query heads over 1 kv head) needs nothing of
+// its own: each block reads kv head h / (H / Hkv).
 //
 // Masking subtleties:
 //  * A row's first processed tile can be entirely masked (a window band
@@ -54,12 +66,10 @@
 namespace {
 
 constexpr float kNegInf = -0x1.666664p+127f;  // float32(-0.7 * FLT_MAX)
-constexpr int kBlockQ = 64;                   // query rows per block
 constexpr int kBlockK = 64;                   // keys per kv tile
 constexpr int kWarps = 4;
-constexpr int kRows = kBlockQ / kWarps;       // query rows per warp
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxHeadDim = 128;
+constexpr int kMaxHeadDim = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -75,20 +85,22 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Shared memory, in floats: q tile [kBlockQ][D] (scaled), K tile
-// [kBlockK][D + 1], V tile [kBlockK][D], p [kWarps][kRows][kBlockK].
-__host__ __device__ constexpr int smem_floats(int D) {
-  return kBlockQ * D + kBlockK * (D + 1) + kBlockK * D + kBlockQ * kBlockK;
+// Shared memory, in floats: q tile [block_q][D] (scaled), K tile
+// [kBlockK][D + 1], V tile [kBlockK][D], p [kWarps][rows][kBlockK].
+__host__ __device__ constexpr int smem_floats(int D, int block_q) {
+  return block_q * D + kBlockK * (D + 1) + kBlockK * D + block_q * kBlockK;
 }
 
 // q [B, Sq, H, D]; k, v [B, Sk, Hkv, D]; out [B, Sq, H, D].
-// DPL = head-dimension columns per lane, ceil(D / 32).
-template <typename T, int DPL>
+// DPL = head-dimension columns per lane (D <= 32 * DPL); kRows = query
+// rows per warp.
+template <typename T, int DPL, int kRows>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int Sq,
                        int Sk, int H, int Hkv, int D, int causal, int window,
                        float scale) {
+  constexpr int kBlockQ = kWarps * kRows;  // query rows per block
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + kBlockQ * D;
@@ -231,24 +243,25 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DPL>
+template <typename T, int DPL, int kRows>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int Sq, int Sk, int H, int Hkv, int D, int causal,
                    int window, float scale, cudaStream_t stream) {
+  constexpr int kBlockQ = kWarps * kRows;
   // above 48 KB a block's shared memory must be opted into, once per
   // instantiation (at the largest D it serves), before any graph capture
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, DPL>,
+        flash_attention_kernel<T, DPL, kRows>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(sizeof(float) * smem_floats(32 * DPL)));
+        static_cast<int>(sizeof(float) * smem_floats(32 * DPL, kBlockQ)));
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
-  const size_t smem = sizeof(float) * smem_floats(D);
+  const size_t smem = sizeof(float) * smem_floats(D, kBlockQ);
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
-  flash_attention_kernel<T, DPL><<<grid, kThreads, smem, stream>>>(
+  flash_attention_kernel<T, DPL, kRows><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, Hkv, D,
       causal, window, scale);
@@ -261,17 +274,20 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
                      int window, float scale, cudaStream_t stream) {
   switch ((D + 31) / 32) {
     case 1:
-      return launch<T, 1>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal, window,
-                          scale, stream);
+      return launch<T, 1, 16>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal,
+                              window, scale, stream);
     case 2:
-      return launch<T, 2>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal, window,
-                          scale, stream);
+      return launch<T, 2, 16>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal,
+                              window, scale, stream);
     case 3:
-      return launch<T, 3>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal, window,
-                          scale, stream);
-    default:
-      return launch<T, 4>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal, window,
-                          scale, stream);
+      return launch<T, 3, 16>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal,
+                              window, scale, stream);
+    case 4:
+      return launch<T, 4, 16>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal,
+                              window, scale, stream);
+    default:  // 128 < D <= 256
+      return launch<T, 8, 8>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal,
+                             window, scale, stream);
   }
 }
 

@@ -27,7 +27,7 @@ from repro_torch.kernels.ref import attn_scale
 
 LAUNCHES = 0  # wrapper calls that launched the kernel (main-path evidence)
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _entry = None
 

@@ -15,6 +15,7 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import fingerprint as _fp
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru as _rg
 
 
 def attention(q, k, v, *, causal=True, window=0):
@@ -34,6 +35,20 @@ def decode_attention(q, k_cache, v_cache, q_pos, k_pos):
     if q.is_cuda:
         return _da.decode_attention(q, k_cache, v_cache, q_pos, k_pos)
     return ref.decode_attention(q, k_cache, v_cache, q_pos=q_pos, k_pos=k_pos)
+
+
+def rglru_scan(x, a_param, gate_a, gate_x, h0=None, *, c: float = 8.0):
+    """RG-LRU over a sequence.  x/gates [B,S,W]; a_param [W]; h0 [B,W] or
+    None -> (h_seq [B,S,W] in x's dtype, h_last [B,W] float32).
+
+    Differentiable: on CUDA the RG-LRU kernel's ``autograd.Function``, on
+    the CPU the plain version under autograd."""
+    if x.is_cuda:
+        return _rg.RGLRUScan.apply(
+            x.contiguous(), a_param.contiguous(), gate_a.contiguous(),
+            gate_x.contiguous(), None if h0 is None else h0.contiguous(),
+            float(c))
+    return ref.naive_rglru(x, a_param, gate_a, gate_x, h0, c=c)
 
 
 def chunk_fingerprint(x, chunk_bytes: int):

@@ -3,15 +3,19 @@
 Counterpart of ``repro.kernels.ref``.  ``decode_attention`` is the plain
 version of the CUDA decode kernel (``kernels/decode_attention.py``) and
 ``naive_attention`` that of the CUDA flash kernel
-(``kernels/flash_attention.py``): the CPU paths of ``ops.decode_attention``
-and ``ops.attention``, and the comparisons the kernels are held to on the
-card.  ``chunk_attention`` carries batched replay
-(``attention.attn_append``); it has no kernel, as in the reference.
+(``kernels/flash_attention.py``) and ``naive_rglru`` that of the CUDA
+RG-LRU kernel (``kernels/rglru.py``): the CPU paths of
+``ops.decode_attention``, ``ops.attention`` and ``ops.rglru_scan``, and
+the comparisons the kernels are held to on the card.
+``chunk_attention`` carries batched replay (``attention.attn_append``)
+and ``rglru_decode_step`` the one-token recurrence of a decode step;
+neither has a kernel, as in the reference.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 
@@ -94,3 +98,45 @@ def decode_attention(q, k_cache, v_cache, *, q_pos, k_pos):
     o = torch.einsum("bhgk,bkhd->bhgd", _in_dtype_f32(p, v_cache.dtype),
                      v_cache.float())
     return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (griffin / recurrentgemma)
+# ---------------------------------------------------------------------------
+
+def _rglru_gates(x, a_param, gate_a, gate_x, c: float):
+    """-> (a_t, gated) in float32: the recurrence's decay and input term,
+    neither depending on h.  ``exp(2 * log_at)``, not ``a_t ** 2``, as in
+    the reference."""
+    log_a = F.logsigmoid(a_param.float())
+    r = torch.sigmoid(gate_a.float())
+    i = torch.sigmoid(gate_x.float())
+    log_at = c * r * log_a
+    a_t = torch.exp(log_at)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_at), min=1e-12))
+    return a_t, beta * (i * x.float())
+
+
+def naive_rglru(x, a_param, gate_a, gate_x, h0=None, *, c: float = 8.0):
+    """Real-Gated Linear Recurrent Unit (arXiv:2402.19427 eq. 1-4).
+
+    x, gate_a, gate_x [B,S,W] (one dtype); a_param [W] (a = sigmoid);
+    h0 [B,W] or None (zeros).  ``h_t = a_t * h_{t-1} + gated_t`` walked in
+    order in float32, a product and then a sum (two roundings).  Returns
+    (h_seq [B,S,W] in x's dtype, h_last [B,W] float32).
+    """
+    B, S, W = x.shape
+    a_t, gated = _rglru_gates(x, a_param, gate_a, gate_x, c)
+    h = (torch.zeros((B, W), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    hs = []
+    for t in range(S):
+        h = a_t[:, t] * h + gated[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(x.dtype), h
+
+
+def rglru_decode_step(h, x, a_param, gate_a, gate_x, *, c: float = 8.0):
+    """One-token RG-LRU update.  h [B,W] float32; x/gates [B,W] -> h'."""
+    a_t, gated = _rglru_gates(x, a_param, gate_a, gate_x, c)
+    return a_t * h.float() + gated

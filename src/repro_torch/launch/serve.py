@@ -3,13 +3,15 @@ worker type that MS2M migrates.
 
 Port of ``repro.launch.serve``, with the reference's flags, defaults and
 printed lines, plus ``--device`` (``cuda`` by default: the prompt goes
-through the flash-attention kernel and every decode step through the
-decode-attention kernel; ``cpu`` runs their plain versions).  Frontend
-models (audio frames, image patches) are not ported yet.
+through the flash-attention kernel, and the RG-LRU kernel for
+recurrentgemma_2b, and every decode step through the decode-attention
+kernel; ``cpu`` runs their plain versions).  Frontend models (audio
+frames, image patches) are not ported yet.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \
       --smoke --requests 16 --decode-steps 32 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma_2b
 """
 from __future__ import annotations
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as _ref
 from repro_torch.models import common
@@ -85,12 +86,13 @@ def attn_forward(params, x, positions, cfg, *, local: bool = False,
 # ---------------------------------------------------------------------------
 
 def init_kv_cache(cfg, batch: int, seq: int, *, local: bool = False,
-                  dtype=None, device="cpu"):
+                  dtype=None, device="cuda"):
     """Cache for one attention layer.  Local layers keep a ring buffer of
     ``window`` slots; global layers keep the full horizon."""
     if cfg.kv_cache_dtype == "int8":
         raise NotImplementedError(
             "the int8 KV cache is not ported yet to repro_torch")
+    device = resolve_device(device)
     S = min(seq, cfg.window) if local else seq
     hd = cfg.resolved_head_dim
     dt = dtype or getattr(torch, cfg.kv_cache_dtype or cfg.dtype)

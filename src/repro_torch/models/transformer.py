@@ -1,6 +1,7 @@
-"""Decoder LM, dense attention pattern.
+"""Decoder LM: dense attention and the RG-LRU hybrid.
 
-Port of ``repro.models.transformer`` for dense attention + MLP patterns:
+Port of ``repro.models.transformer`` for patterns of attention and RG-LRU
+mixers with MLPs (paper_consumer, smollm_360m, recurrentgemma_2b):
 training (``lm_forward``, ``lm_loss``) and serving (``init_cache``,
 ``lm_prefill``, ``lm_decode_step``, ``lm_append``).  The reference scans
 stacked per-group params with ``lax.scan``; here a Python loop walks the
@@ -16,7 +17,11 @@ deterministic, so the numbers do not change.  JAX's ``dots`` policy
 exact torch counterpart; here it is the same as ``full``.
 
 Prefill, decode and append update the cache tensors in place and return
-the same cache dict (see ``repro_torch.models.attention``).
+the same cache dict (see ``repro_torch.models.attention``).  An RG-LRU
+layer's new state is copied into its group's slice of the stacked leaf;
+where its dtype differs (the ``conv`` leaf starts float32 and comes back
+in the activations' dtype, as in the reference), the stacked leaf is
+first replaced by one of the new dtype.
 """
 from __future__ import annotations
 
@@ -26,22 +31,23 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.models import attention, common, mlp
+from repro_torch.models import attention, common, mlp, rglru
 from repro_torch.models.config import BlockKind, ModelConfig
 from repro_torch.models.common import param, zeros_param
 from repro_torch.tree import flatten, tree_map, unflatten
 
 MIXERS_WITH_KV = (BlockKind.ATTN_GLOBAL, BlockKind.ATTN_LOCAL)
+PORTED_MIXERS = MIXERS_WITH_KV + (BlockKind.RGLRU,)
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for the parts of a config this port does not run yet."""
     for mixer, ffn in cfg.pattern:
-        if mixer not in MIXERS_WITH_KV or ffn not in (BlockKind.MLP,
-                                                      BlockKind.NONE):
+        if mixer not in PORTED_MIXERS or ffn not in (BlockKind.MLP,
+                                                     BlockKind.NONE):
             raise NotImplementedError(
                 f"{cfg.name}: block ({mixer.value}, {ffn.value}) is not "
-                "ported yet to repro_torch (dense attention + MLP only)")
+                "ported yet to repro_torch (attention or RG-LRU + MLP only)")
     if cfg.is_encoder_decoder or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and modality frontends are not "
@@ -52,10 +58,13 @@ def check_ported(cfg: ModelConfig) -> None:
 # init
 # ---------------------------------------------------------------------------
 
-def _init_block(gen, cfg, ffn: BlockKind):
-    """One attention block (``check_ported`` admits no other mixer)."""
-    blk: Dict[str, Any] = {"norm1": zeros_param((cfg.d_model,)),
-                           "attn": attention.init_attention(gen, cfg)}
+def _init_block(gen, cfg, mixer: BlockKind, ffn: BlockKind):
+    """One attention or RG-LRU block (``check_ported`` admits no other)."""
+    blk: Dict[str, Any] = {"norm1": zeros_param((cfg.d_model,))}
+    if mixer in MIXERS_WITH_KV:
+        blk["attn"] = attention.init_attention(gen, cfg)
+    else:
+        blk["rglru"] = rglru.init_rglru_block(gen, cfg)
     if ffn == BlockKind.MLP:
         blk["norm2"] = zeros_param((cfg.d_model,))
         blk["mlp"] = mlp.init_mlp(gen, cfg)
@@ -72,9 +81,9 @@ def _stack(trees):
 
 def _init_groups(gen, cfg, n_groups: int):
     """Stacked per-position block params: {'b0': stacked, 'b1': ...}."""
-    return {f"b{i}": _stack([_init_block(gen, cfg, ffn)
+    return {f"b{i}": _stack([_init_block(gen, cfg, mixer, ffn)
                              for _ in range(n_groups)])
-            for i, (_, ffn) in enumerate(cfg.pattern)}
+            for i, (mixer, ffn) in enumerate(cfg.pattern)}
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda"):
@@ -109,9 +118,13 @@ def _apply_block(blk, x, positions, cfg, i: int, *, enc_out=None,
     mixer, ffn = cfg.pattern[i]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = common.rms_norm(x, blk["norm1"], cfg.norm_eps)
-    x = x + attention.attn_forward(blk["attn"], h, positions, cfg,
+    if mixer in MIXERS_WITH_KV:
+        y = attention.attn_forward(blk["attn"], h, positions, cfg,
                                    local=mixer == BlockKind.ATTN_LOCAL,
                                    causal=causal)
+    else:
+        y, _ = rglru.rglru_block_forward(blk["rglru"], h, cfg)
+    x = x + y
     if ffn == BlockKind.MLP:
         h = common.rms_norm(x, blk["norm2"], cfg.norm_eps)
         x = x + mlp.mlp_forward(blk["mlp"], h, cfg)
@@ -197,8 +210,12 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda"):
     G = cfg.num_groups
     cache = {}
     for i, (mixer, _) in enumerate(cfg.pattern):
-        one = attention.init_kv_cache(
-            cfg, batch, seq, local=(mixer == BlockKind.ATTN_LOCAL), device=dev)
+        if mixer in MIXERS_WITH_KV:
+            one = attention.init_kv_cache(
+                cfg, batch, seq, local=(mixer == BlockKind.ATTN_LOCAL),
+                device=dev)
+        else:
+            one = rglru.init_rglru_state(cfg, batch, device=dev)
         cache[f"b{i}"] = {k: a[None].repeat((G,) + (1,) * a.dim())
                           for k, a in one.items()}
     return cache
@@ -215,17 +232,39 @@ def _logits(params, x, cfg):
     return common.soft_cap(logits, cfg.logits_softcap)
 
 
-def _run_layers(params, x, positions, cfg, cache, mix):
-    """Apply every layer in order; ``mix`` is the attention variant
-    (``prefill_into_cache``, ``attn_decode`` or ``attn_append``), which
-    updates ``cache``."""
+# per serving call: (attention variant, which updates its cache slice in
+# place; RG-LRU variant, which returns the layer's new state)
+_MIXES = {
+    "prefill": (attention.prefill_into_cache, rglru.rglru_block_forward),
+    "decode": (attention.attn_decode, rglru.rglru_decode_step),
+    "append": (attention.attn_append, rglru.rglru_block_forward),
+}
+
+
+def _store_state(stacked, g: int, new) -> None:
+    """Write an RG-LRU layer's new state into group ``g`` of its stacked
+    cache leaves, replacing a leaf whose dtype the state changed."""
+    for k, a in new.items():
+        if stacked[k].dtype != a.dtype:
+            stacked[k] = stacked[k].to(a.dtype)
+        stacked[k][g].copy_(a)
+
+
+def _run_layers(params, x, positions, cfg, cache, kind: str):
+    """Apply every layer in order, updating ``cache``; ``kind`` is the
+    serving call (``prefill``, ``decode`` or ``append``)."""
+    attn_mix, rec_mix = _MIXES[kind]
     for g in range(cfg.num_groups):
         for i, (mixer, ffn) in enumerate(cfg.pattern):
             blk = tree_map(lambda a: a[g], params["groups"][f"b{i}"])
             layer_cache = {k: a[g] for k, a in cache[f"b{i}"].items()}
             h = common.rms_norm(x, blk["norm1"], cfg.norm_eps)
-            y, _ = mix(blk["attn"], h, positions, cfg, layer_cache,
-                       local=mixer == BlockKind.ATTN_LOCAL)
+            if mixer in MIXERS_WITH_KV:
+                y, _ = attn_mix(blk["attn"], h, positions, cfg, layer_cache,
+                                local=mixer == BlockKind.ATTN_LOCAL)
+            else:
+                y, new = rec_mix(blk["rglru"], h, cfg, layer_cache)
+                _store_state(cache[f"b{i}"], g, new)
             x = x + y
             if ffn == BlockKind.MLP:
                 h = common.rms_norm(x, blk["norm2"], cfg.norm_eps)
@@ -238,7 +277,7 @@ def lm_decode_step(params, tokens, positions, cfg: ModelConfig, cache):
 
     ``cache`` is updated in place and returned."""
     x = common.embed(params["embed"], tokens, cfg)
-    x = _run_layers(params, x, positions, cfg, cache, attention.attn_decode)
+    x = _run_layers(params, x, positions, cfg, cache, "decode")
     return _logits(params, x, cfg), cache
 
 
@@ -250,7 +289,7 @@ def lm_append(params, tokens, positions, cfg: ModelConfig, cache):
     updated in place and returned.
     """
     x = common.embed(params["embed"], tokens, cfg)
-    x = _run_layers(params, x, positions, cfg, cache, attention.attn_append)
+    x = _run_layers(params, x, positions, cfg, cache, "append")
     return _logits(params, x, cfg), cache
 
 
@@ -258,9 +297,9 @@ def lm_prefill(params, batch, cfg: ModelConfig, cache, unroll: bool = False):
     """Process a full prompt, producing logits and a populated cache.
 
     Full-sequence attention (the flash kernel on the card) plus the cache
-    writes, layer by layer.  ``cache`` is updated in place and returned.
+    writes, and the RG-LRU scan (its kernel on the card) from the cached
+    state, layer by layer.  ``cache`` is updated in place and returned.
     """
     x, positions = _embed_inputs(params, batch, cfg)
-    x = _run_layers(params, x, positions, cfg, cache,
-                    attention.prefill_into_cache)
+    x = _run_layers(params, x, positions, cfg, cache, "prefill")
     return _logits(params, x, cfg), cache

@@ -49,7 +49,10 @@ def _decode_inputs(dev, B, S, H, Hkv, D, dtype, ring, seed=0):
                                          (1, 128, 4, 4, 32),
                                          (3, 1000, 12, 3, 48),
                                          # launch.serve: smollm_360m
-                                         (8, 128, 15, 5, 64)])
+                                         (8, 128, 15, 5, 64),
+                                         # recurrentgemma_2b: MQA, D 256
+                                         (8, 128, 10, 1, 256),
+                                         (2, 2048, 10, 1, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain(cuda, B, S, H, Hkv, D, dtype, ring):
     q, k, v, qp, kp = _decode_inputs(cuda, B, S, H, Hkv, D, dtype, ring)
@@ -296,6 +299,13 @@ FLASH_CASES = [  # (B, Sq, Sk, H, Hkv, D, causal, window)
     (2, 77, 77, 3, 1, 20, True, 0),      # smollm smoke head_dim
     (2, 128, 48, 4, 2, 16, True, 16),    # rows with no valid key
     (2, 96, 96, 4, 4, 32, False, 0),     # no mask
+    # recurrentgemma_2b's local layers: MQA (10 heads over 1), D 256,
+    # window 2048; the 2304-token prompt is where the window bites
+    (8, 32, 32, 10, 1, 256, True, 2048),
+    (2, 2304, 2304, 10, 1, 256, True, 2048),
+    (2, 100, 100, 10, 1, 256, True, 40),
+    (2, 72, 40, 4, 2, 256, True, 16),    # D 256, rows with no valid key
+    (1, 77, 77, 3, 1, 200, True, 0),     # 128 < D < 256
 ]
 
 
@@ -341,8 +351,121 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="dtypes"):
         fa.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="D <="):
-        fa.flash_attention(*_flash_inputs(cuda, 1, 8, 8, 2, 1, 160,
+        fa.flash_attention(*_flash_inputs(cuda, 1, 8, 8, 2, 1, 288,
                                           torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_local_ring_at_head_dim_256(cuda, dtype):
+    """A local layer's 2048-slot ring past its window: empty slots, slots
+    ahead of the query and slots outside the window (marked -1 as
+    ``attention.attn_decode`` does), MQA with 10 heads, D 256."""
+    q, k, v, qp, kp = _decode_inputs(cuda, 2, 2048, 10, 1, 256, dtype, True)
+    kp = torch.where(qp[:, None] - kp < 2048, kp, -1)
+    got = da.decode_attention(q, k, v, qp, kp)
+    want = ref.decode_attention(q, k, v, q_pos=qp, k_pos=kp)
+    torch.cuda.synchronize()
+    tol = TOL32 if dtype == torch.float32 else TOL_BF16
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, da.decode_attention(q, k, v, qp, kp))
+
+
+# -- RG-LRU -------------------------------------------------------------------
+
+RGLRU_CASES = [  # (B, S, W, dtype, h0: None, "zeros" or "random")
+    (8, 32, 2560, torch.bfloat16, "zeros"),   # launch.serve's prefill
+    (2, 2304, 2560, torch.bfloat16, "zeros"),  # the 2304-token prompt
+    # tests/test_kernels.py's shapes
+    *[(B, S, W, dt, None) for B, S, W in [(1, 64, 128), (2, 128, 256),
+                                          (1, 96, 512)]
+      for dt in (torch.float32, torch.bfloat16)],
+    (2, 128, 256, torch.float32, "random"),
+    (2, 128, 256, torch.bfloat16, "random"),
+    (3, 1, 2560, torch.bfloat16, "random"),    # one step
+    (2, 33, 70, torch.float32, "random"),      # W not a multiple of 64
+]
+
+
+def _rglru_inputs(dev, B, S, W, dtype, h0, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x, ga, gx = (torch.randn((B, S, W), generator=gen, device=dev).to(dtype)
+                 for _ in range(3))
+    a = torch.randn((W,), generator=gen, device=dev)
+    h = {None: None, "zeros": torch.zeros((B, W), device=dev),
+         "random": torch.randn((B, W), generator=gen, device=dev)}[h0]
+    return x, a, ga, gx, h
+
+
+@pytest.mark.parametrize("B,S,W,dtype,h0", RGLRU_CASES)
+def test_rglru_kernel_matches_plain(cuda, B, S, W, dtype, h0):
+    from repro_torch.kernels import rglru as rg
+
+    x, a, ga, gx, h = _rglru_inputs(cuda, B, S, W, dtype, h0)
+    before = rg.LAUNCHES
+    got = rg.rglru(x, a, ga, gx, h)
+    again = rg.rglru(x, a, ga, gx, h)
+    torch.cuda.synchronize()
+    assert rg.LAUNCHES == before + 2
+    want = ref.naive_rglru(x, a, ga, gx, h)
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    # float32 state: libm ulps; h_seq in bf16: one rounding of the state
+    tol = (dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32
+           else dict(rtol=8e-3, atol=1e-6))
+    torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+    assert all(torch.equal(g, w) for g, w in zip(got, again))
+
+
+def test_rglru_autograd_gradients_equal_plain(cuda):
+    x, a, ga, gx, h = _rglru_inputs(cuda, 2, 40, 96, torch.float32,
+                                    "random", seed=3)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    w_seq = torch.randn(x.shape, generator=gen, device=cuda)
+    w_last = torch.randn(h.shape, generator=gen, device=cuda)
+    grads = []
+    for fn in (ops.rglru_scan, ref.naive_rglru):
+        leaves_ = [t.clone().requires_grad_() for t in (x, a, ga, gx, h)]
+        seq, last = fn(*leaves_)
+        ((seq * w_seq).sum() + (last * w_last).sum()).backward()
+        grads.append([t.grad for t in leaves_])
+    for g, p in zip(*grads):
+        assert torch.equal(g, p)
+
+
+def test_rglru_kernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import rglru as rg
+
+    x, a, ga, gx, h = _rglru_inputs(cuda, 2, 8, 64, torch.float32, "random")
+    with pytest.raises(ValueError, match="contiguous"):
+        rg.rglru(x.transpose(0, 1).contiguous().transpose(0, 1), a, ga, gx)
+    with pytest.raises(ValueError, match="dtypes"):
+        rg.rglru(x.bfloat16(), a, ga, gx)
+    with pytest.raises(ValueError, match="dtypes"):
+        rg.rglru(x, a, ga, gx, h.bfloat16())
+    with pytest.raises(ValueError, match="a_param"):
+        rg.rglru(x, a[:32], ga, gx)
+    with pytest.raises(ValueError, match="CUDA"):
+        rg.rglru(x.cpu(), a.cpu(), ga.cpu(), gx.cpu())
+
+
+def test_serve_cli_recurrentgemma_at_full_width(cuda, capsys):
+    """``launch.serve --arch recurrentgemma_2b`` at full width: per
+    prefill one RG-LRU launch per RG-LRU layer (18) and one flash launch
+    per local layer (8); per decode step one decode launch per local
+    layer."""
+    from repro_torch.kernels import decode_attention as da_
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.launch import serve
+
+    r0, f0, d0 = rg.LAUNCHES, fa.LAUNCHES, da_.LAUNCHES
+    assert serve.main(["--arch", "recurrentgemma_2b", "--requests", "2",
+                       "--decode-steps", "3"]) == 0
+    assert (rg.LAUNCHES - r0, fa.LAUNCHES - f0, da_.LAUNCHES - d0) == \
+        (18, 8, 3 * 8)
+    out = capsys.readouterr().out
+    assert "[serve] prefill 32 tokens x 2 requests" in out
+    assert "[serve] decoded 3 steps x 2 requests" in out
 
 
 def _paper_trainer(dev):
