@@ -28,7 +28,12 @@ Phases, each fatal on failure (no phase catches its own error):
      the 2048 window, its decode cache and a local ring past the window).
      The RG-LRU kernel at ``launch.serve``'s prefill, the 2304-token
      prompt, ``tests/test_kernels.py``'s shapes, with h0, one step and a
-     ragged width, and its autograd gradient against the plain version's;
+     ragged width, and its autograd gradient against the plain version's.
+     The sLSTM kernel at xlstm_350m's train shape, ``tests/test_kernels.py``'s
+     shapes and a ragged head width; the mLSTM kernel at the train shape
+     (one chunk), over four chunks, at ``tests/test_kernels.py``'s shapes
+     and chunks and a ragged head dim; both in float32 and bf16, with
+     their autograd gradients against the plain versions';
   4. model: the paper consumer's decode steps on the card against the
      same steps on the CPU (the plain path); over five seeds, card against
      CPU, the gradients and three AdamW train steps of the paper consumer
@@ -37,9 +42,13 @@ Phases, each fatal on failure (no phase catches its own error):
      and decode steps at ``launch.serve``'s shapes; over three seeds, the
      logits of recurrentgemma_2b at full width cut to one 13-layer period
      (a prefill of 2 x 32 and 4 decode steps, in bf16 and in float32);
-     each limit lies between the sound readings and a control's (TF32
-     products, attention without its masks, the RG-LRU without its
-     carry), and the control must fail it;
+     over three seeds, the logits of xlstm_350m at full width cut to one
+     group (7 mLSTM + 1 sLSTM: a forward through the kernels, then a
+     prefill and 4 decode steps through the recurrences, in bf16 and in
+     float32); each limit lies between the sound readings and a control's
+     (TF32 products, attention without its masks, the RG-LRU without its
+     carry, the mLSTM without its forget-gate decay), and the control
+     must fail it;
   5. path: ``repro_torch.launch.migrate.main`` with its defaults (the
      paper consumer at full width, max_seq 2048), with ``--precopy``,
      with ``--precopy --compression int8`` and with ``--workload serving
@@ -56,8 +65,12 @@ Phases, each fatal on failure (no phase catches its own error):
      ``flash_attention`` and ``decode_attention`` the counts its layers
      give, and the default run's cache after prefill pushed through the
      registry (fingerprints on the card), pulled, and decoded 8 steps
-     bit-equal to the source; and a paper-consumer ``TrainerWorker`` at
-     full width
+     bit-equal to the source; ``launch.train --arch xlstm_350m`` (full
+     width, 4 steps: 21 ``mlstm`` and 3 ``slstm`` launches a step) and
+     ``launch.serve --arch xlstm_350m`` with its defaults, its cache after
+     prefill (706,415,232 bytes of recurrent state) through the registry
+     and decoded 8 steps bit-equal; and a paper-consumer
+     ``TrainerWorker`` at full width
      migrated through ``ms2m_statefulset`` and through ``ms2m_precopy``
      with int8 deltas (``benchmarks/delta_precopy.py``'s trainer
      workload), each verified bit for bit against the reference fold.
@@ -343,6 +356,8 @@ def kernel_phase():
     rows.update(codec_kernels())
     rows["flash_attention"] = flash_kernel(gen)
     rows["rglru"] = rglru_kernel(gen)
+    rows["slstm"] = slstm_kernel(gen)
+    rows["mlstm"] = mlstm_kernel(gen)
     decode_empty_row(gen)
     print("[kernels] " + json.dumps(sorted(rows)))
     return rows
@@ -576,6 +591,190 @@ def rglru_kernel(gen):
           "version's")
     print("[kernels] rglru autograd: gradients bit-equal to the plain "
           "version's")
+    row["by_shape"] = by_shape
+    return row
+
+
+SLSTM_CASES = [  # (label, B, S, H, hb, dtype)
+    # launch.train's shape: xlstm_350m, batch 8 x 128, d_model 1024, 4 heads
+    ("xl-train", 8, 128, 4, 256, torch.bfloat16),
+    ("xl-train-f32", 8, 128, 4, 256, torch.float32),
+    # tests/test_kernels.py's shapes
+    *[(f"sweep-{B}x{S}x{H}x{hb}", B, S, H, hb, dt)
+      for B, S, H, hb in [(1, 32, 2, 16), (2, 64, 4, 32)]
+      for dt in (torch.float32, torch.bfloat16)],
+    ("ragged", 3, 7, 3, 40, torch.float32),  # hb not a multiple of 32
+]
+SLSTM_TOL = dict(rtol=1e-5, atol=1e-5)       # float32, dot-product order
+SLSTM_TOL_BF16 = dict(rtol=8e-3, atol=1e-5)  # one bf16 rounding of h_seq
+# operations per (b, t, w) besides the four matvecs (2 * 4 * hb): the
+# gate sums, the stabilizer, three exps, tanh, sigmoid, the c / n / h
+# updates and a division, about 25
+SLSTM_OPS_PER_ELEMENT = 25
+MLSTM_CASES = [  # (label, B, S, H, D, chunk, dtype)
+    # launch.train's shape (one chunk of 128), and four chunks
+    ("xl-train", 8, 128, 4, 512, 128, torch.bfloat16),
+    ("xl-train-f32", 8, 128, 4, 512, 128, torch.float32),
+    ("xl-4chunks", 2, 512, 4, 512, 128, torch.bfloat16),
+    ("xl-4chunks-f32", 2, 512, 4, 512, 128, torch.float32),
+    # tests/test_kernels.py's shapes and chunks
+    *[(f"sweep-{B}x{S}x{H}x{D}-c{ch}", B, S, H, D, ch, dt)
+      for B, S, H, D in [(1, 64, 2, 32), (2, 128, 4, 64)]
+      for ch in (32, 64) for dt in (torch.float32, torch.bfloat16)],
+    ("ragged", 2, 12, 3, 40, 4, torch.float32),  # D not a multiple of 32
+]
+# max |kernel - plain| over max |plain|: float32 sums over D and over the
+# chunk in another order, divided by a denominator that cancels (h reaches
+# ~70 with |v| ~ 1); bf16 output rounding, under one ulp of the largest
+MLSTM_REL = {torch.float32: 5e-5, torch.bfloat16: 8e-3}
+TIMED_XL = ("xl-train", "xl-4chunks")
+
+
+def _two_launches(fn, plain, label, name, tol=None, rel=None):
+    """``fn()`` twice against ``plain()``: finite, in the input's dtype,
+    within ``tol`` (allclose) or ``rel`` (of the largest |plain|), and
+    bit-equal between the launches.  -> max abs error."""
+    got, again, want = fn(), fn(), plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{name} {label}: {got.dtype} {tuple(got.shape)}, plain "
+          f"{want.dtype} {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite")
+    ok = (torch.allclose(got.float(), want.float(), **tol) if tol else
+          err <= rel * want.float().abs().max().item())
+    check(ok, f"{name} {label}: kernel disagrees with the plain version "
+          f"({err:.3e}, tolerance {tol or rel})")
+    check(torch.equal(got, again), f"{name} {label}: two launches differ")
+    return err
+
+
+def _grads_equal(name, apply, plain, inputs, weight):
+    """The kernel's autograd gradients bit-equal to the plain version's."""
+    grads = []
+    for fn in (apply, plain):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        (fn(*leaves) * weight).sum().backward()
+        grads.append([t.grad for t in leaves])
+    check(all(torch.equal(p, q) for p, q in zip(*grads)),
+          f"{name}: the kernel's autograd gradients differ from the plain "
+          "version's")
+    print(f"[kernels] {name} autograd: gradients bit-equal to the plain "
+          "version's")
+
+
+def slstm_kernel(gen):
+    """The sLSTM kernel against its plain version (``ref.naive_slstm``
+    from a fresh state) at every case, two launches bit-equal, the
+    autograd gradients equal to the plain version's; times at the train
+    shape."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import slstm as sl
+
+    row = None
+    for label, B, S, H, hb, dtype in SLSTM_CASES:
+        W = H * hb
+        xs = [torch.randn((B, S, W), generator=gen, device="cuda").to(dtype)
+              for _ in range(4)]
+        # the model's scale for r (0.02) at hb 256; 0.2 at the sweep's
+        rs = [torch.randn((H, hb, hb), generator=gen, device="cuda")
+              * (0.02 if hb >= 256 else 0.2) for _ in range(4)]
+        tol = SLSTM_TOL if dtype == torch.float32 else SLSTM_TOL_BF16
+        err = _two_launches(lambda: sl.slstm(*xs, *rs),
+                            lambda: ref.naive_slstm(*xs, *rs)[0], label,
+                            "slstm", tol=tol)
+        print(f"[kernels] slstm {label} [{B},{S},{W}] H={H} "
+              f"{str(dtype)[6:]}: max_abs_err={err:.3e}")
+        if label != "xl-train":
+            continue
+        ms = graph_ms(lambda: sl.slstm(*xs, *rs))
+        # the plain version is a Python loop of S steps: one call a graph
+        plain_ms = graph_ms(lambda: ref.naive_slstm(*xs, *rs), reps=1,
+                            graphs=2)
+        nbytes = 5 * xs[0].nbytes + sum(r.nbytes for r in rs)
+        ops = B * S * W * (8 * hb + SLSTM_OPS_PER_ELEMENT)
+        b_ms, b_by = bound(nbytes, ops)
+        print(f"[kernels] slstm {label}: {ms * 1e3:.2f} us kernel, "
+              f"{plain_ms * 1e3:.2f} us plain, bound {b_ms * 1e3:.3f} us "
+              f"({b_by}, {nbytes} bytes, {ops} operations)")
+        row = dict(name="slstm", route="cuda",
+                   source="src/repro_torch/csrc/slstm.cu",
+                   replaces="src/repro/kernels/slstm.py:71",
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None,
+                   by_shape={label: dict(shape=[B, S, W, H],
+                                         max_abs_err=err, ms=ms,
+                                         plain_ms=plain_ms, bound_ms=b_ms,
+                                         bound_by=b_by, library_ms=None)})
+    xs = [torch.randn((2, 20, 64), generator=gen, device="cuda")
+          for _ in range(4)]
+    rs = [torch.randn((2, 32, 32), generator=gen, device="cuda") * 0.2
+          for _ in range(4)]
+    _grads_equal("slstm", sl.SLSTMScan.apply,
+                 lambda *a: ref.naive_slstm(*a)[0], xs + rs,
+                 torch.randn((2, 20, 64), generator=gen, device="cuda"))
+    return row
+
+
+def mlstm_ops(B, S, H, D, T) -> int:
+    """Operations the chunkwise mLSTM needs on these shapes: per chunk the
+    kept (t, j <= t) pairs of q.k and S.v (4 D each, and 4 for the decay
+    weight), then per chunk after the first q C^T and q.n, and per chunk
+    before the last the C and n update (2 T D (D + 1) each)."""
+    nc = S // T
+    pairs = T * (T + 1) // 2
+    carry = 2 * T * D * (D + 1)
+    return B * H * (nc * pairs * (4 * D + 4) + 2 * (nc - 1) * carry)
+
+
+def mlstm_kernel(gen):
+    """The mLSTM kernel against its plain version
+    (``ref.chunkwise_mlstm``) at every case, two launches bit-equal, the
+    autograd gradients equal to the plain version's; times at the train
+    shape and over four chunks."""
+    from repro_torch.kernels import mlstm as ml
+    from repro_torch.kernels import ref
+
+    row, by_shape = None, {}
+    for label, B, S, H, D, ch, dtype in MLSTM_CASES:
+        q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda")
+                   .to(dtype) for _ in range(3))
+        ig = torch.randn((B, S, H), generator=gen, device="cuda")
+        fg = torch.randn((B, S, H), generator=gen, device="cuda") + 3.0
+        err = _two_launches(
+            lambda: ml.mlstm(q, k, v, ig, fg, chunk=ch),
+            lambda: ref.chunkwise_mlstm(q, k, v, ig, fg, chunk=ch), label,
+            "mlstm", rel=MLSTM_REL[dtype])
+        print(f"[kernels] mlstm {label} [{B},{S},{H},{D}] chunk {ch} "
+              f"{str(dtype)[6:]}: max_abs_err={err:.3e}")
+        if label not in TIMED_XL:
+            continue
+        ms = graph_ms(lambda: ml.mlstm(q, k, v, ig, fg, chunk=ch))
+        plain_ms = graph_ms(
+            lambda: ref.chunkwise_mlstm(q, k, v, ig, fg, chunk=ch))
+        nbytes = 4 * q.nbytes + ig.nbytes + fg.nbytes
+        ops = mlstm_ops(B, S, H, D, ch)
+        b_ms, b_by = bound(nbytes, ops)
+        print(f"[kernels] mlstm {label}: {ms * 1e3:.2f} us kernel, "
+              f"{plain_ms * 1e3:.2f} us plain, bound {b_ms * 1e3:.3f} us "
+              f"({b_by}, {nbytes} bytes, {ops} operations)")
+        by_shape[label] = dict(shape=[B, S, H, D], chunk=ch, max_abs_err=err,
+                               ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=None)
+        if row is None:
+            row = dict(name="mlstm", route="cuda",
+                       source="src/repro_torch/csrc/mlstm.cu",
+                       replaces="src/repro/kernels/mlstm.py:100",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    q, k, v = (torch.randn((2, 48, 2, 40), generator=gen, device="cuda")
+               for _ in range(3))
+    ig = torch.randn((2, 48, 2), generator=gen, device="cuda")
+    fg = torch.randn((2, 48, 2), generator=gen, device="cuda") + 3.0
+    _grads_equal("mlstm", lambda *a: ml.MLSTMScan.apply(*a, 16),
+                 lambda *a: ref.chunkwise_mlstm(*a, chunk=16),
+                 [q, k, v, ig, fg],
+                 torch.randn((2, 48, 2, 40), generator=gen, device="cuda"))
     row["by_shape"] = by_shape
     return row
 
@@ -1034,7 +1233,7 @@ RG_LIMITS = {"bfloat16": dict(prefill=2e-2, decode=2e-2),
              "float32": dict(prefill=2e-4, decode=2e-4)}
 
 KERNELS = ("decode_attention", "fingerprint_lanes", "xor_fp_lanes",
-           "int8_fp_lanes", "flash_attention", "rglru")
+           "int8_fp_lanes", "flash_attention", "rglru", "slstm", "mlstm")
 CODEC = ("xor_fp_lanes", "int8_fp_lanes")
 
 
@@ -1043,23 +1242,28 @@ def _counters():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import fingerprint as fp
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm as ml
     from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import slstm as sl
 
-    return ck, da, fp, fa, rg
+    return ck, {"decode_attention": da, "fingerprint_lanes": fp,
+                "flash_attention": fa, "rglru": rg, "slstm": sl,
+                "mlstm": ml}
 
 
 def reset_counts() -> None:
-    ck, da, fp, fa, rg = _counters()
-    da.LAUNCHES = fp.LAUNCHES = fa.LAUNCHES = rg.LAUNCHES = 0
+    ck, mods = _counters()
+    for mod in mods.values():
+        mod.LAUNCHES = 0
     for name in ck.LAUNCHES:
         ck.LAUNCHES[name] = 0
 
 
 def read_counts() -> dict:
-    ck, da, fp, fa, rg = _counters()
-    return {"decode_attention": da.LAUNCHES, "fingerprint_lanes": fp.LAUNCHES,
-            **ck.LAUNCHES, "flash_attention": fa.LAUNCHES,
-            "rglru": rg.LAUNCHES}
+    ck, mods = _counters()
+    counts = {**{name: mod.LAUNCHES for name, mod in mods.items()},
+              **ck.LAUNCHES}
+    return {name: counts[name] for name in KERNELS}
 
 
 def run_path(label, fn, needs):
@@ -1297,24 +1501,13 @@ def rg_model_phase() -> None:
                   "the check cannot see it")
 
 
-def rg_serve_paths(paths) -> None:
-    """``launch.serve --arch recurrentgemma_2b`` at full width with the
-    reference's defaults and with a 2304-token prompt (the local layers'
-    2048-slot ring rolls and their window bites): each prints the
-    reference's lines and launches, per prefill, ``rglru`` once per
-    RG-LRU layer and ``flash_attention`` once per local layer, and per
-    decode step ``decode_attention`` once per local layer.  The default
-    run's cache after its prefill then goes through the registry
-    (``rg_ms2m_state``)."""
-    from repro_torch import configs
+@contextlib.contextmanager
+def capturing_prefill(captured):
+    """``launch.serve``'s prefill step, wrapped so that its params, logits
+    and the cache right after it land in ``captured``."""
     from repro_torch.launch import serve
-    from repro_torch.models import BlockKind
     from repro_torch.tree import tree_map
 
-    cfg = configs.get_config("recurrentgemma_2b")
-    n_rec = cfg.num_groups * sum(m == BlockKind.RGLRU for m, _ in cfg.pattern)
-    n_attn = cfg.num_layers - n_rec
-    captured = {}
     plain_build = serve.steplib.build_prefill_step
 
     def capturing_build(c):
@@ -1328,20 +1521,40 @@ def rg_serve_paths(paths) -> None:
 
         return prefill_step
 
+    serve.steplib.build_prefill_step = capturing_build
+    try:
+        yield
+    finally:
+        serve.steplib.build_prefill_step = plain_build
+
+
+def rg_serve_paths(paths) -> None:
+    """``launch.serve --arch recurrentgemma_2b`` at full width with the
+    reference's defaults and with a 2304-token prompt (the local layers'
+    2048-slot ring rolls and their window bites): each prints the
+    reference's lines and launches, per prefill, ``rglru`` once per
+    RG-LRU layer and ``flash_attention`` once per local layer, and per
+    decode step ``decode_attention`` once per local layer.  The default
+    run's cache after its prefill then goes through the registry
+    (``ms2m_state``)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import BlockKind
+
+    cfg = configs.get_config("recurrentgemma_2b")
+    n_rec = cfg.num_groups * sum(m == BlockKind.RGLRU for m, _ in cfg.pattern)
+    n_attn = cfg.num_layers - n_rec
+    captured = {}
     runs = (("serve-rg", ["--arch", "recurrentgemma_2b"], 8, 32, 32),
             ("serve-rg-long", ["--arch", "recurrentgemma_2b", "--requests",
                                "2", "--prompt-len", "2304", "--max-seq",
                                "2560", "--decode-steps", "16"], 2, 2304, 16))
     for label, argv, B, prompt, steps in runs:
-        serve.steplib.build_prefill_step = (capturing_build
-                                            if label == "serve-rg"
-                                            else plain_build)
-        try:
+        with (capturing_prefill(captured) if label == "serve-rg"
+              else contextlib.nullcontext()):
             launches, (rc, text), wall = run_path(
                 label, lambda: _captured(serve.main, argv),
                 ("rglru", "flash_attention", "decode_attention"))
-        finally:
-            serve.steplib.build_prefill_step = plain_build
         paths[label] = launches
         check(rc == 0, f"{label}: launch.serve exited {rc}")
         for line in (f"[serve] prefill {prompt} tokens x {B} requests: ",
@@ -1357,17 +1570,20 @@ def rg_serve_paths(paths) -> None:
               f"flash_attention={n_attn}; per decode step "
               f"decode_attention={n_attn}")
         if label == "serve-rg":
-            paths["serve-rg-ms2m"] = rg_ms2m_state(cfg, captured)
+            paths["serve-rg-ms2m"] = ms2m_state(
+                "serve-rg-ms2m", cfg, captured,
+                ("fingerprint_lanes", "decode_attention"))
             captured.clear()
 
 
-def rg_ms2m_state(cfg, captured) -> dict:
-    """The recurrentgemma serving cache right after the default run's
-    prefill, pushed through the port's ``Registry`` (its fingerprints
-    taken on the card) and pulled into a fresh cache; 8 greedy decode
-    steps from each must give bit-equal tokens and logits.  -> launches.
-    Prints the image's bytes beside those of a KV cache of every layer
-    at the same batch and length (the O(1)-state case)."""
+def ms2m_state(label, cfg, captured, needs, image_bytes=None) -> dict:
+    """A serving cache right after a ``launch.serve`` run's prefill,
+    pushed through the port's ``Registry`` (its fingerprints taken on
+    the card) and pulled into a fresh cache; 8 greedy decode steps from
+    each must give bit-equal tokens and logits.  -> launches.  Prints the
+    image's bytes beside those of a KV cache of every layer at the same
+    batch and length (the O(1)-state case); ``image_bytes``, where given,
+    is the size the image must have."""
     from repro_torch.checkpoint.registry import Registry
     from repro_torch.convert import to_tensor
     from repro_torch.kernels import build
@@ -1409,8 +1625,7 @@ def rg_ms2m_state(cfg, captured) -> dict:
             outs.append((torch.cat(toks, 1), torch.cat(lgs, 1), c))
         return report, pulled, outs
 
-    launches, (report, pulled, outs), wall = run_path(
-        "serve-rg-ms2m", run, ("fingerprint_lanes", "decode_attention"))
+    launches, (report, pulled, outs), wall = run_path(label, run, needs)
     (ta, la, ca), (tb, lb, cb) = outs
     check(torch.equal(ta, tb) and torch.equal(la, lb),
           "ms2m: decoding from the pulled cache differs from the source")
@@ -1420,13 +1635,219 @@ def rg_ms2m_state(cfg, captured) -> dict:
     item = torch.tensor([], dtype=cfg.compute_dtype).element_size()
     kv_bytes = cfg.num_layers * B * max_seq * (
         2 * cfg.num_kv_heads * cfg.resolved_head_dim * item + 4)
-    print(f"[path] serve-rg-ms2m: image {report.total_bytes} bytes "
+    check(image_bytes in (None, report.total_bytes),
+          f"ms2m: image of {report.total_bytes} bytes, want {image_bytes}")
+    print(f"[path] {label}: image {report.total_bytes} bytes "
           f"({report.num_chunks} chunks, pulled {pulled}); a KV cache of all "
           f"{cfg.num_layers} layers at batch {B}, {max_seq} slots would "
           f"hold {kv_bytes} bytes ({report.total_bytes / kv_bytes:.3f}x); "
           f"8 decode steps from the pulled cache bit-equal to the source's "
           f"(tokens {ta[0].tolist()})")
     return launches
+
+
+XL_SEEDS = (0, 1, 2)
+# card against CPU, relative L2 error of the logits, worst over XL_SEEDS;
+# each limit lies between the sound readings and the control's (PERF.md,
+# xlstm_350m findings: on an H100 over seeds 0-2, worst sound / least
+# control: bf16 5.1e-2 / 0.56 forward, 0.136 / 0.56 prefill, 3.9e-2 /
+# 0.85 decode; float32 1.3e-5 / 0.56, 1.6e-5 / 0.56, 6.8e-6 / 0.85).
+# bf16 rounding is amplified by the per-head norm of the mLSTM output,
+# which is steep where k.q is near 0
+XL_LIMITS = {"bfloat16": dict(forward=3e-1, prefill=3e-1, decode=3e-1),
+             "float32": dict(forward=1e-3, prefill=1e-3, decode=1e-3)}
+
+
+def xl_config(dtype: str = "bfloat16"):
+    """xlstm_350m at full width cut to one group (7 mLSTM + 1 sLSTM)."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get_config("xlstm_350m")
+    return dataclasses.replace(cfg, num_layers=len(cfg.pattern), dtype=dtype)
+
+
+def xl_run(seed: int, params, device: str, dtype: str):
+    """From ``params`` (on ``device``), computing in ``dtype``: an
+    ``lm_forward`` of 2 x 32 tokens (the kernels on the card), then
+    ``lm_prefill`` of the same prompts into a fresh cache and 4
+    teacher-forced ``lm_decode_step`` calls (the recurrences).  ->
+    (forward, prefill, decode logits), float32."""
+    import numpy as np
+
+    from repro_torch.convert import to_tensor
+    from repro_torch.models import transformer as T
+
+    cfg = xl_config(dtype)
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (2, 36)).astype(np.int32)
+    with torch.no_grad():
+        batch = {"tokens": to_tensor(toks[:, :32], device)}
+        fwd, _ = T.lm_forward(params, batch, cfg)
+        cache = T.init_cache(cfg, 2, 128, device=device)
+        pre, cache = T.lm_prefill(params, batch, cfg, cache)
+        dec = []
+        for t in range(32, 36):
+            pos = torch.full((2, 1), t, dtype=torch.int32, device=device)
+            lg, cache = T.lm_decode_step(
+                params, to_tensor(toks[:, t:t + 1], device), pos, cfg, cache)
+            dec.append(lg)
+    return fwd.float(), pre.float(), torch.cat(dec, 1).float()
+
+
+@contextlib.contextmanager
+def decay_dropped():
+    """The control of the xLSTM check: every mLSTM without its forget-gate
+    decay (log f = 0: f_gate pushed to +1e4), in the kernel on the card
+    and in the recurrences of prefill and decode."""
+    from repro_torch.kernels import ops, ref
+
+    scan, step = ops.mlstm_scan, ref.mlstm_decode_step
+
+    def no_decay_scan(q, k, v, i_gate, f_gate, state=None):
+        return scan(q, k, v, i_gate, torch.full_like(f_gate, 1e4), state)
+
+    def no_decay_step(state, q, k, v, i_gate, f_gate):
+        return step(state, q, k, v, i_gate, torch.full_like(f_gate, 1e4))
+
+    ops.mlstm_scan, ref.mlstm_decode_step = no_decay_scan, no_decay_step
+    try:
+        yield
+    finally:
+        ops.mlstm_scan, ref.mlstm_decode_step = scan, step
+
+
+def xl_model_phase() -> None:
+    """Card against CPU, over ``XL_SEEDS`` and in each dtype of
+    ``XL_LIMITS``: xlstm_350m's logits at full width cut to one group.
+    The weights are drawn once a seed on the CPU and copied to the card.
+    Each limit must hold for every seed and fail for the control
+    (``decay_dropped``) at every seed."""
+    from repro_torch.models import BlockKind
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    cfg = xl_config()
+    n_m = sum(m == BlockKind.MLSTM for m, _ in cfg.pattern)
+    n_s = sum(m == BlockKind.SLSTM for m, _ in cfg.pattern)
+    sound = {dtype: [] for dtype in XL_LIMITS}
+    ctl = {dtype: [] for dtype in XL_LIMITS}
+    names = ("forward", "prefill", "decode")
+    for seed in XL_SEEDS:
+        t0 = time.perf_counter()
+        params = T.init_lm(cfg, seed=seed, device="cpu")
+        on_card = tree_map(lambda t: t.to("cuda"), params)
+        print(f"[model] xlstm_350m seed {seed}: init "
+              f"{time.perf_counter() - t0:.1f} s")
+        for dtype in XL_LIMITS:
+            t0 = time.perf_counter()
+            host = xl_run(seed, params, "cpu", dtype)
+            t_host = time.perf_counter() - t0
+            for control, out in ((False, sound), (True, ctl)):
+                reset_counts()
+                with decay_dropped() if control else contextlib.nullcontext():
+                    got = xl_run(seed, on_card, "cuda", dtype)
+                n = read_counts()
+                check((n["mlstm"], n["slstm"]) == (n_m, n_s),
+                      f"xlstm check: launches {n}, want mlstm {n_m} and "
+                      f"slstm {n_s} (the forward only)")
+                check(all(bool(torch.isfinite(g).all()) for g in got),
+                      "xlstm logits on the card not finite")
+                out[dtype].append({name: _rel_norm(g, h) for name, g, h in
+                                   zip(names, got, host)})
+                label = ("decay dropped (control)" if control
+                         else "card vs CPU")
+                print(f"[model] xlstm_350m {len(cfg.pattern)} layers {dtype}, "
+                      f"{label}, seed {seed}: " + " ".join(
+                          f"{k}={v:.3e}" for k, v in out[dtype][-1].items())
+                      + (f" (CPU run {t_host:.1f} s)" if not control else ""))
+        del params, on_card
+    for dtype, limits in XL_LIMITS.items():
+        for name, limit in limits.items():
+            worst = max(r[name] for r in sound[dtype])
+            least = min(r[name] for r in ctl[dtype])
+            print(f"[model] xlstm_350m {dtype} {name}: worst sound "
+                  f"{worst:.3e}, limit {limit:.1e}, least control "
+                  f"{least:.3e}")
+            check(worst <= limit, f"xlstm_350m {dtype}: card disagrees "
+                  f"with the CPU ({name} {worst:.3e} > {limit:.1e})")
+            check(least > limit, f"xlstm_350m {dtype}: the control passes "
+                  f"the {name} limit ({least:.3e} <= {limit:.1e}); the "
+                  "check cannot see it")
+
+
+XL_TRAIN_STEPS = 4
+
+
+def xl_paths(paths) -> None:
+    """``launch.train --arch xlstm_350m`` (full width) for
+    ``XL_TRAIN_STEPS`` steps: each step's forward launches ``mlstm`` once
+    per mLSTM layer (21) and ``slstm`` once per sLSTM layer (3), its
+    backward neither (the plain versions), and the final image push the
+    fingerprint kernel.  Then ``launch.serve --arch xlstm_350m`` with its
+    defaults (prefill and decode thread the state: no xLSTM kernel), and
+    its cache after prefill through the registry (``ms2m_state``): 8
+    sequences x (21 mLSTM states of 4,202,512 bytes + 3 sLSTM states of
+    16,384 bytes)."""
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve, train
+    from repro_torch.models import BlockKind
+
+    cfg = configs.get_config("xlstm_350m")
+    n_m = cfg.num_groups * sum(m == BlockKind.MLSTM for m, _ in cfg.pattern)
+    n_s = cfg.num_layers - n_m
+    image_bytes = 12 * cfg.param_count()  # params, m and v in float32
+    need = image_bytes + 2 * 2 ** 30
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(build.BUILD_DIR).free
+    print(f"[path] train-xl: {cfg.param_count()} params, image "
+          f"{image_bytes} bytes to write; {free} bytes free under "
+          f"{build.BUILD_DIR}")
+    check(free >= need, f"train-xl: {free} bytes free, need {need} for the "
+          "checkpoint image")
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_xl_",
+                            dir=build.BUILD_DIR)
+    try:
+        argv = ["--arch", "xlstm_350m", "--steps", str(XL_TRAIN_STEPS),
+                "--ckpt-every", "100", "--log-every", "1", "--registry", root]
+        launches, (rc, text), wall = run_path(
+            "train-xl", lambda: _captured(train.main, argv),
+            ("mlstm", "slstm", "fingerprint_lanes"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    paths["train-xl"] = launches
+    check(rc == 0, f"train-xl: launch.train exited {rc}")
+    loss = float(text.split("[train] done; final loss")[1].split()[0])
+    check(math.isfinite(loss), f"train-xl: final loss {loss}")
+    check((launches["mlstm"], launches["slstm"])
+          == (XL_TRAIN_STEPS * n_m, XL_TRAIN_STEPS * n_s),
+          f"train-xl: launches {launches}, want {n_m} mlstm and {n_s} "
+          f"slstm a step over {XL_TRAIN_STEPS} steps")
+    print(f"[path] train-xl: rc={rc} final_loss={loss:.4f} per step "
+          f"mlstm={n_m} slstm={n_s}; wall per step "
+          f"{wall / XL_TRAIN_STEPS * 1e3:.0f} ms (the push included)")
+
+    captured = {}
+    with capturing_prefill(captured):
+        launches, (rc, text), wall = run_path(
+            "serve-xl", lambda: _captured(serve.main, ["--arch",
+                                                      "xlstm_350m"]), ())
+    paths["serve-xl"] = launches
+    check(rc == 0, f"serve-xl: launch.serve exited {rc}")
+    for line in ("[serve] prefill 32 tokens x 8 requests: ",
+                 "[serve] decoded 32 steps x 8 requests: ",
+                 "[serve] sample continuation (request 0): "):
+        check(line in text, f"serve-xl: no line {line!r}")
+    check(not any(launches.values()), f"serve-xl: launches {launches}, want "
+          "none (prefill and decode thread the state)")
+    H, D = cfg.num_heads, 2 * cfg.d_model // cfg.num_heads
+    # per sequence: C [H,D,D], n [H,D], m [H] per mLSTM layer and c, n, h,
+    # m [d_model] per sLSTM layer, all float32
+    state = 8 * 4 * (n_m * (H * D * D + H * D + H) + n_s * 4 * cfg.d_model)
+    paths["serve-xl-ms2m"] = ms2m_state("serve-xl-ms2m", cfg, captured,
+                                        ("fingerprint_lanes",), state)
 
 
 def trainer_migration_paths(paths) -> None:
@@ -1487,6 +1908,7 @@ def main() -> int:
     model_phase()
     train_model_phase()
     rg_model_phase()
+    xl_model_phase()
     fold = ("decode_attention", "fingerprint_lanes")
     paths = {
         "default": path_phase([], "default", fold),
@@ -1500,6 +1922,7 @@ def main() -> int:
     }
     train_paths(paths)
     rg_serve_paths(paths)
+    xl_paths(paths)
     trainer_migration_paths(paths)
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in paths.values())

@@ -2,9 +2,10 @@
 
 Same interface as ``repro.configs``.  Ported: ``paper_consumer`` (the
 paper's evaluation microservice, the model the migration path runs),
-``smollm_360m`` (the training and serving CLIs' default) and
-``recurrentgemma_2b`` (the RG-LRU + local-attention hybrid, served);
-every other architecture name raises until its model family is ported.
+``smollm_360m`` (the training and serving CLIs' default),
+``recurrentgemma_2b`` (the RG-LRU + local-attention hybrid, served) and
+``xlstm_350m`` (mLSTM + sLSTM blocks, trained and served); every other
+architecture name raises until its model family is ported.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ ARCHS: List[str] = [
     "xlstm_350m",
     "paper_consumer",  # the paper's own evaluation microservice model
 ]
-PORTED = ("paper_consumer", "smollm_360m", "recurrentgemma_2b")
+PORTED = ("paper_consumer", "smollm_360m", "recurrentgemma_2b",
+          "xlstm_350m")
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 

@@ -4,11 +4,12 @@
 port's tree of tensors: ``repro``'s ``T.init_lm(...)`` params into the
 port's params (plain dicts of tensors), its AdamW state
 (``adamw_init``/``adamw_update``) into the port's optimizer state, and
-its serving caches (KV rings, RG-LRU ``h`` and ``conv``, bfloat16 leaves
-included) into the port's, so both packages compute, train and serve
-from the same point in the parity tests.  The reference's ``ParamLeaf`` wrappers (anything
-with ``value`` and ``axes`` attributes) are unwrapped; this module
-imports nothing of ``repro`` or JAX.
+its serving caches (KV rings, RG-LRU ``h`` and ``conv``, the xLSTM
+states' tuples, bfloat16 leaves included) into the port's, so both
+packages compute, train and serve from the same point in the parity
+tests.  The reference's ``ParamLeaf`` wrappers (anything with ``value``
+and ``axes`` attributes) are unwrapped; this module imports nothing of
+``repro`` or JAX.
 """
 from __future__ import annotations
 
@@ -31,9 +32,10 @@ def to_tensor(a, device) -> torch.Tensor:
 
 
 def tree_from_jax(np_tree, device="cuda"):
-    """A reference tree (numpy leaves, possibly wrapped in ``ParamLeaf``)
-    -> the same tree of tensors on ``device``: params, or the AdamW state
-    ``{"count", "mu": {leaf: {"m", "v"}}}`` (``count`` an int32 scalar)."""
+    """A reference tree (numpy leaves, possibly wrapped in ``ParamLeaf``;
+    dicts, tuples and lists) -> the same tree of tensors on ``device``:
+    params, a serving cache, or the AdamW state ``{"count", "mu": {leaf:
+    {"m", "v"}}}`` (``count`` an int32 scalar)."""
     dev = resolve_device(device)
 
     def convert(node):
@@ -41,6 +43,8 @@ def tree_from_jax(np_tree, device="cuda"):
             node = node.value
         if isinstance(node, dict):
             return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(convert(v) for v in node)
         return to_tensor(node, dev)
 
     return convert(np_tree)

@@ -14,8 +14,10 @@ from repro_torch.kernels import codec as _ck
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import fingerprint as _fp
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mlstm as _ml
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru as _rg
+from repro_torch.kernels import slstm as _sl
 
 
 def attention(q, k, v, *, causal=True, window=0):
@@ -49,6 +51,54 @@ def rglru_scan(x, a_param, gate_a, gate_x, h0=None, *, c: float = 8.0):
             gate_x.contiguous(), None if h0 is None else h0.contiguous(),
             float(c))
     return ref.naive_rglru(x, a_param, gate_a, gate_x, h0, c=c)
+
+
+def slstm_scan(x_i, x_f, x_z, x_o, r_i, r_f, r_z, r_o, state=None):
+    """sLSTM over a sequence.  x_* [B,S,W]; r_* [H,hb,hb] float32; state
+    (c, n, h, m) [B,W] float32 or None (fresh) -> (h_seq in x's dtype,
+    new state, or None for a fresh-state call on the card).
+
+    As in the reference, only a fresh state reaches the kernel: a CUDA
+    tensor with ``state=None`` launches it through ``SLSTMScan``
+    (differentiable) and returns no state, a CPU tensor runs its plain
+    version.  A call that threads a state (prefill, decode and append of a
+    serving cache) runs the recurrence ``ref.naive_slstm`` on every
+    device: the port of the reference's own jnp path, which the reference
+    takes on the TPU as well, not a plain version standing in for a
+    kernel."""
+    if state is None and x_i.is_cuda:
+        h = _sl.SLSTMScan.apply(*(t.contiguous() for t in (
+            x_i, x_f, x_z, x_o, r_i, r_f, r_z, r_o)))
+        return h, None
+    return ref.naive_slstm(x_i, x_f, x_z, x_o, r_i, r_f, r_z, r_o, state)
+
+
+def mlstm_scan(q, k, v, i_gate, f_gate, state=None):
+    """mLSTM over a sequence.  q/k/v [B,S,H,D]; gates [B,S,H]; state (C, n,
+    m) or None (fresh) -> (h [B,S,H,D], new state or None).
+
+    As in the reference, only a fresh state reaches the chunkwise kernel,
+    in chunks of 128 halved until they divide S (the chunk sets the sum
+    order): a CUDA tensor with ``state=None`` launches it through
+    ``MLSTMScan`` (differentiable) and returns h in q's dtype and no
+    state; a CPU tensor runs its plain version ``ref.chunkwise_mlstm``
+    likewise.  A call that threads a state (prefill and append of a
+    serving cache) runs the stabilized recurrence ``ref.naive_mlstm`` on
+    every device, h in float32: the port of the reference's own jnp path,
+    which the reference takes on the TPU as well, not a plain version
+    standing in for a kernel."""
+    if state is None:
+        ch = 128
+        while q.shape[1] % ch:
+            ch //= 2
+        i_gate, f_gate = i_gate.float(), f_gate.float()
+        if q.is_cuda:
+            h = _ml.MLSTMScan.apply(*(t.contiguous() for t in (
+                q, k, v, i_gate, f_gate)), ch)
+        else:
+            h = ref.chunkwise_mlstm(q, k, v, i_gate, f_gate, chunk=ch)
+        return h, None
+    return ref.naive_mlstm(q, k, v, i_gate, f_gate, state)
 
 
 def chunk_fingerprint(x, chunk_bytes: int):

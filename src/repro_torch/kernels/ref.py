@@ -1,15 +1,19 @@
-"""Plain PyTorch versions of the attention functions the port needs.
+"""Plain PyTorch versions of the functions the port's kernels compute.
 
 Counterpart of ``repro.kernels.ref``.  ``decode_attention`` is the plain
-version of the CUDA decode kernel (``kernels/decode_attention.py``) and
+version of the CUDA decode kernel (``kernels/decode_attention.py``),
 ``naive_attention`` that of the CUDA flash kernel
-(``kernels/flash_attention.py``) and ``naive_rglru`` that of the CUDA
-RG-LRU kernel (``kernels/rglru.py``): the CPU paths of
-``ops.decode_attention``, ``ops.attention`` and ``ops.rglru_scan``, and
-the comparisons the kernels are held to on the card.
-``chunk_attention`` carries batched replay (``attention.attn_append``)
-and ``rglru_decode_step`` the one-token recurrence of a decode step;
-neither has a kernel, as in the reference.
+(``kernels/flash_attention.py``), ``naive_rglru`` that of the CUDA
+RG-LRU kernel (``kernels/rglru.py``), ``chunkwise_mlstm`` that of the
+CUDA mLSTM kernel (``kernels/mlstm.py``) and ``naive_slstm`` with no
+state that of the CUDA sLSTM kernel (``kernels/slstm.py``): the CPU
+paths of ``ops.decode_attention``, ``ops.attention``, ``ops.rglru_scan``,
+``ops.mlstm_scan`` and ``ops.slstm_scan``, and the comparisons the
+kernels are held to on the card.  ``chunk_attention`` carries batched
+replay (``attention.attn_append``), ``rglru_decode_step`` the one-token
+recurrence of a decode step, and ``naive_mlstm``, ``mlstm_decode_step``
+and ``naive_slstm`` the xLSTM recurrences that thread a serving state;
+none of these has a kernel, as in the reference.
 """
 from __future__ import annotations
 
@@ -140,3 +144,162 @@ def rglru_decode_step(h, x, a_param, gate_a, gate_x, *, c: float = 8.0):
     """One-token RG-LRU update.  h [B,W] float32; x/gates [B,W] -> h'."""
     a_t, gated = _rglru_gates(x, a_param, gate_a, gate_x, c)
     return a_t * h.float() + gated
+
+
+# ---------------------------------------------------------------------------
+# mLSTM and sLSTM (xLSTM)
+# ---------------------------------------------------------------------------
+
+def _mlstm_update(C, n, m, q, k, v, logi, logf):
+    """One step of the stabilized mLSTM recurrence, in float32.  C
+    [B,H,Dv,Dk], n [B,H,D], m [B,H]; q (scaled)/k/v [B,H,D]; gates [B,H]
+    -> ((C, n, m), h [B,H,D])."""
+    m_new = torch.maximum(logf + m, logi)
+    fe = torch.exp(logf + m - m_new)
+    ie = torch.exp(logi - m_new)
+    C = fe[..., None, None] * C + ie[..., None, None] * (
+        v[..., :, None] * k[..., None, :])
+    n = fe[..., None] * n + ie[..., None] * k
+    num = torch.einsum("bhvk,bhk->bhv", C, q)
+    den = torch.abs(torch.einsum("bhk,bhk->bh", n, q))
+    den = torch.maximum(den, torch.exp(-m_new))  # max(|n q|, exp(-m))
+    return (C, n, m_new), num / den[..., None]
+
+
+def naive_mlstm(q, k, v, i_gate, f_gate, state=None):
+    """Matrix-LSTM (arXiv:2405.04517 §2.3), stabilized recurrent form.
+
+    q,k,v: [B,S,H,D]; i_gate,f_gate: [B,S,H] (pre-activations).
+      C_t = f_t C_{t-1} + i_t v_t k_t^T ;  n_t = f_t n_{t-1} + i_t k_t
+      h_t = C_t q_t / max(|n_t^T q_t|, exp(-m_t))
+    with the m_t log-stabilizer from the paper.  state (C [B,H,Dv,Dk], n
+    [B,H,D], m [B,H]) float32, or None (zeros, m = NEG_INF).  Returns (h
+    [B,S,H,D] float32, state): float32 whatever q's dtype, as the
+    reference's recurrence returns it.
+    """
+    B, S, H, D = q.shape
+    scale = attn_scale(D)
+    q = q.float() * scale
+    k = k.float()
+    v = v.float()
+    logf = F.logsigmoid(f_gate.float())  # [B,S,H]
+    logi = i_gate.float()
+    if state is None:
+        C = torch.zeros((B, H, D, D), dtype=torch.float32, device=q.device)
+        n = torch.zeros((B, H, D), dtype=torch.float32, device=q.device)
+        m = torch.full((B, H), NEG_INF, dtype=torch.float32, device=q.device)
+    else:
+        C, n, m = state
+    hs = []
+    for t in range(S):
+        (C, n, m), h = _mlstm_update(C, n, m, q[:, t], k[:, t], v[:, t],
+                                     logi[:, t], logf[:, t])
+        hs.append(h)
+    return torch.stack(hs, dim=1), (C, n, m)
+
+
+def mlstm_decode_step(state, q, k, v, i_gate, f_gate):
+    """One-token mLSTM update.  q/k/v [B,H,D]; gates [B,H] -> (state, h
+    [B,H,D] float32)."""
+    C, n, m = state
+    scale = attn_scale(q.shape[-1])
+    return _mlstm_update(C, n, m, q.float() * scale, k.float(), v.float(),
+                         i_gate.float(), F.logsigmoid(f_gate.float()))
+
+
+def chunkwise_mlstm(q, k, v, i_gate, f_gate, chunk: int = 128):
+    """The mLSTM from a fresh state in the chunkwise-parallel form: the
+    plain version of the CUDA mLSTM kernel (``kernels/mlstm.py``), a
+    transcription of the reference's Pallas kernel body.
+
+    q/k/v [B,S,H,D]; gates [B,S,H] -> h [B,S,H,D] in q's dtype.  Per
+    chunk of T steps, with b the inclusive cumsum of log f and F = b[-1]:
+      m_t  = max(b_t + m_in, max_{j<=t}(b_t - b_j + logi_j))
+      S    = (q k^T) * exp(b_t - b_j + logi_j - m_t), j <= t
+      h_t  = (S v + e_t q C^T) / max(|sum_j S + e_t q.n|, exp(-m_t)),
+             e_t = exp(b_t + m_in - m_t)
+    then C, n, m carry to the next chunk with m_out = max(F + m_in,
+    max_j(F - b_j + logi_j)).  The chunk size sets the sum order, so
+    ``ops.mlstm_scan`` picks it as the reference does.
+    """
+    B, S, H, D = q.shape
+    T = min(chunk, S)
+    if S % T:
+        raise ValueError(f"S={S} is not a multiple of the chunk {T}")
+    scale = float(np.float32(1.0 / D ** 0.5))  # the kernel's sm_scale
+    qt = q.float().transpose(1, 2) * scale  # [B,H,S,D]
+    kt = k.float().transpose(1, 2)
+    vt = v.float().transpose(1, 2)
+    logi = i_gate.float().transpose(1, 2)  # [B,H,S]
+    logf = F.logsigmoid(f_gate.float()).transpose(1, 2)
+    C = torch.zeros((B, H, D, D), dtype=torch.float32, device=q.device)
+    n = torch.zeros((B, H, D), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H), NEG_INF, dtype=torch.float32, device=q.device)
+    idx = torch.arange(T, device=q.device)
+    tri = idx[:, None] >= idx[None, :]
+    outs = []
+    for c0 in range(0, S, T):
+        qc, kc, vc = (a[:, :, c0:c0 + T] for a in (qt, kt, vt))
+        li = logi[:, :, c0:c0 + T]
+        b = torch.cumsum(logf[:, :, c0:c0 + T], dim=-1)
+        Fc = b[..., -1]
+        intra = b[..., :, None] - b[..., None, :] + li[..., None, :]
+        intra = torch.where(tri, intra, NEG_INF)
+        m_t = torch.maximum(b + m[..., None], intra.amax(-1))
+        Sm = (qc @ kc.transpose(-1, -2)) * torch.exp(intra - m_t[..., None])
+        Sm = torch.where(tri, Sm, 0.0)
+        inter = torch.exp(b + m[..., None] - m_t)
+        num = Sm @ vc + inter[..., None] * (qc @ C.transpose(-1, -2))
+        den = Sm.sum(-1) + inter * (qc @ n[..., None])[..., 0]
+        den = torch.maximum(torch.abs(den), torch.exp(-m_t))
+        outs.append(num / den[..., None])
+        m_out = torch.maximum(Fc + m, (Fc[..., None] - b + li).amax(-1))
+        w = torch.exp(Fc[..., None] - b + li - m_out[..., None])
+        decay = torch.exp(Fc + m - m_out)
+        C = decay[..., None, None] * C + (vc * w[..., None]).transpose(
+            -1, -2) @ kc
+        n = decay[..., None] * n + (w[..., None] * kc).sum(-2)
+        m = m_out
+    return torch.cat(outs, dim=2).transpose(1, 2).to(q.dtype)
+
+
+def naive_slstm(x_i, x_f, x_z, x_o, r_i, r_f, r_z, r_o, state=None):
+    """Scalar-LSTM with exponential gating + block-diagonal (per-head)
+    recurrent mixing, as in arXiv:2405.04517 §2.2.
+
+    x_* : [B,S,W] input pre-activations; r_* : [H, hb, hb] per-head
+    recurrent weights applied to h_{t-1} (W = H*hb).  state (c, n, h, m)
+    [B,W] float32 each, or None (c = 0, n = 1, h = 0, m = 0).  Returns
+    (h_seq in x_i's dtype, state).  With ``state=None`` this is the plain
+    version of the CUDA sLSTM kernel (``kernels/slstm.py``).
+    """
+    B, S, W = x_i.shape
+    H, hb = r_i.shape[0], r_i.shape[1]
+    if H * hb != W:
+        raise ValueError(f"H={H} x hb={hb} != W={W}")
+    rs = [r.float() for r in (r_i, r_f, r_z, r_o)]
+
+    def rec(h, r):  # [B,W] x [H,hb,hb] -> [B,W]
+        return torch.einsum("bhi,hij->bhj", h.reshape(B, H, hb),
+                            r).reshape(B, W)
+
+    if state is None:
+        def z():
+            return torch.zeros((B, W), dtype=torch.float32,
+                               device=x_i.device)
+        c, n, h, m = z(), z() + 1.0, z(), z()
+    else:
+        c, n, h, m = state
+    hs = []
+    for t in range(S):
+        zi, zf, zz, zo = (x[:, t].float() + rec(h, r)
+                          for x, r in zip((x_i, x_f, x_z, x_o), rs))
+        m_new = torch.maximum(zf + m, zi)
+        ie = torch.exp(zi - m_new)
+        fe = torch.exp(zf + m - m_new)
+        c = fe * c + ie * torch.tanh(zz)
+        n = fe * n + ie
+        h = torch.sigmoid(zo) * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(x_i.dtype), (c, n, h, m)

@@ -5,13 +5,17 @@ Port of ``repro.launch.serve``, with the reference's flags, defaults and
 printed lines, plus ``--device`` (``cuda`` by default: the prompt goes
 through the flash-attention kernel, and the RG-LRU kernel for
 recurrentgemma_2b, and every decode step through the decode-attention
-kernel; ``cpu`` runs their plain versions).  Frontend models (audio
+kernel; ``cpu`` runs their plain versions).  For xlstm_350m the prefill
+and the decode steps thread the recurrent state through the mLSTM and
+sLSTM recurrences on either device, as the reference does: its kernels
+take fresh-state sequences only (training).  Frontend models (audio
 frames, image patches) are not ported yet.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \
       --smoke --requests 16 --decode-steps 32 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma_2b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_350m
 """
 from __future__ import annotations
 

@@ -2,8 +2,11 @@
 
 Port of ``repro.launch.train``, with the reference's flags, defaults and
 printed lines, plus ``--device`` (``cuda`` by default: the flash-attention
-and, for every checkpoint push, the fingerprint kernels run on the card;
-``cpu`` runs their plain versions).
+kernel (smollm_360m, paper_consumer) or the mLSTM and sLSTM kernels
+(``--arch xlstm_350m``: one launch per layer a forward; the backward runs
+their plain versions, as the reference has no backward kernel) and, for
+every checkpoint push, the fingerprint kernel run on the card; ``cpu``
+runs their plain versions).
 
 Fault tolerance wired in:
   * periodic async checkpoints to the registry (images are content-addressed
@@ -16,6 +19,8 @@ Fault tolerance wired in:
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_360m \
       --steps 50 --smoke --registry REG --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm_350m \
+      --steps 4 --ckpt-every 100 --registry REG
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
-"""Decoder LM: dense attention and the RG-LRU hybrid.
+"""Decoder LM: dense attention, the RG-LRU hybrid and xLSTM.
 
-Port of ``repro.models.transformer`` for patterns of attention and RG-LRU
-mixers with MLPs (paper_consumer, smollm_360m, recurrentgemma_2b):
+Port of ``repro.models.transformer`` for patterns of attention, RG-LRU,
+mLSTM and sLSTM mixers with MLPs or none (paper_consumer, smollm_360m,
+recurrentgemma_2b, xlstm_350m):
 training (``lm_forward``, ``lm_loss``) and serving (``init_cache``,
 ``lm_prefill``, ``lm_decode_step``, ``lm_append``).  The reference scans
 stacked per-group params with ``lax.scan``; here a Python loop walks the
@@ -17,27 +18,53 @@ deterministic, so the numbers do not change.  JAX's ``dots`` policy
 exact torch counterpart; here it is the same as ``full``.
 
 Prefill, decode and append update the cache tensors in place and return
-the same cache dict (see ``repro_torch.models.attention``).  An RG-LRU
-layer's new state is copied into its group's slice of the stacked leaf;
-where its dtype differs (the ``conv`` leaf starts float32 and comes back
-in the activations' dtype, as in the reference), the stacked leaf is
-first replaced by one of the new dtype.
+the same cache dict (see ``repro_torch.models.attention``).  A recurrent
+layer's new state (RG-LRU ``{h, conv}``, mLSTM ``(C, n, m)``, sLSTM ``(c,
+n, h, m)``: dicts and tuples as in the reference, so the flattened leaves
+line up with its cache) is copied into its group's slice of the stacked
+leaves; where a leaf's dtype differs (the ``conv`` leaf starts float32 and
+comes back in the activations' dtype, as in the reference), the stacked
+leaf is first replaced by one of the new dtype.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, NamedTuple
 
 import torch
 import torch.utils.checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.models import attention, common, mlp, rglru
+from repro_torch.models import attention, common, mlp, rglru, xlstm
 from repro_torch.models.config import BlockKind, ModelConfig
 from repro_torch.models.common import param, zeros_param
 from repro_torch.tree import flatten, tree_map, unflatten
 
 MIXERS_WITH_KV = (BlockKind.ATTN_GLOBAL, BlockKind.ATTN_LOCAL)
-PORTED_MIXERS = MIXERS_WITH_KV + (BlockKind.RGLRU,)
+
+
+class _Recurrent(NamedTuple):
+    """A recurrent mixer: its block's params key, and its functions.
+    ``forward`` takes a sequence (from a state, or fresh for training),
+    ``decode`` one token; both return the layer's new state."""
+    key: str
+    init_block: Callable
+    init_state: Callable
+    forward: Callable
+    decode: Callable
+
+
+_RECURRENT = {
+    BlockKind.RGLRU: _Recurrent(
+        "rglru", rglru.init_rglru_block, rglru.init_rglru_state,
+        rglru.rglru_block_forward, rglru.rglru_decode_step),
+    BlockKind.MLSTM: _Recurrent(
+        "mlstm", xlstm.init_mlstm_block, xlstm.init_mlstm_state,
+        xlstm.mlstm_block_forward, xlstm.mlstm_decode_step),
+    BlockKind.SLSTM: _Recurrent(
+        "slstm", xlstm.init_slstm_block, xlstm.init_slstm_state,
+        xlstm.slstm_block_forward, xlstm.slstm_decode_step),
+}
+PORTED_MIXERS = MIXERS_WITH_KV + tuple(_RECURRENT)
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -47,7 +74,8 @@ def check_ported(cfg: ModelConfig) -> None:
                                                      BlockKind.NONE):
             raise NotImplementedError(
                 f"{cfg.name}: block ({mixer.value}, {ffn.value}) is not "
-                "ported yet to repro_torch (attention or RG-LRU + MLP only)")
+                "ported yet to repro_torch (attention, RG-LRU, mLSTM or "
+                "sLSTM, with an MLP or none)")
     if cfg.is_encoder_decoder or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and modality frontends are not "
@@ -59,12 +87,14 @@ def check_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _init_block(gen, cfg, mixer: BlockKind, ffn: BlockKind):
-    """One attention or RG-LRU block (``check_ported`` admits no other)."""
+    """One attention, RG-LRU, mLSTM or sLSTM block (``check_ported``
+    admits no other)."""
     blk: Dict[str, Any] = {"norm1": zeros_param((cfg.d_model,))}
     if mixer in MIXERS_WITH_KV:
         blk["attn"] = attention.init_attention(gen, cfg)
     else:
-        blk["rglru"] = rglru.init_rglru_block(gen, cfg)
+        rec = _RECURRENT[mixer]
+        blk[rec.key] = rec.init_block(gen, cfg)
     if ffn == BlockKind.MLP:
         blk["norm2"] = zeros_param((cfg.d_model,))
         blk["mlp"] = mlp.init_mlp(gen, cfg)
@@ -123,7 +153,8 @@ def _apply_block(blk, x, positions, cfg, i: int, *, enc_out=None,
                                    local=mixer == BlockKind.ATTN_LOCAL,
                                    causal=causal)
     else:
-        y, _ = rglru.rglru_block_forward(blk["rglru"], h, cfg)
+        rec = _RECURRENT[mixer]
+        y, _ = rec.forward(blk[rec.key], h, cfg)
     x = x + y
     if ffn == BlockKind.MLP:
         h = common.rms_norm(x, blk["norm2"], cfg.norm_eps)
@@ -215,9 +246,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda"):
                 cfg, batch, seq, local=(mixer == BlockKind.ATTN_LOCAL),
                 device=dev)
         else:
-            one = rglru.init_rglru_state(cfg, batch, device=dev)
-        cache[f"b{i}"] = {k: a[None].repeat((G,) + (1,) * a.dim())
-                          for k, a in one.items()}
+            one = _RECURRENT[mixer].init_state(cfg, batch, device=dev)
+        cache[f"b{i}"] = tree_map(
+            lambda a: a[None].repeat((G,) + (1,) * a.dim()), one)
     return cache
 
 
@@ -232,39 +263,48 @@ def _logits(params, x, cfg):
     return common.soft_cap(logits, cfg.logits_softcap)
 
 
-# per serving call: (attention variant, which updates its cache slice in
-# place; RG-LRU variant, which returns the layer's new state)
-_MIXES = {
-    "prefill": (attention.prefill_into_cache, rglru.rglru_block_forward),
-    "decode": (attention.attn_decode, rglru.rglru_decode_step),
-    "append": (attention.attn_append, rglru.rglru_block_forward),
-}
+# per serving call, the attention variant (it updates its cache slice in
+# place); a recurrent mixer runs its ``decode`` for a decode step and its
+# ``forward`` otherwise, and returns the layer's new state
+_ATTN_MIXES = {"prefill": attention.prefill_into_cache,
+               "decode": attention.attn_decode,
+               "append": attention.attn_append}
 
 
-def _store_state(stacked, g: int, new) -> None:
-    """Write an RG-LRU layer's new state into group ``g`` of its stacked
-    cache leaves, replacing a leaf whose dtype the state changed."""
-    for k, a in new.items():
-        if stacked[k].dtype != a.dtype:
-            stacked[k] = stacked[k].to(a.dtype)
-        stacked[k][g].copy_(a)
+def _store_state(cache, key: str, g: int, new) -> None:
+    """Write a recurrent layer's new state (a dict or a tuple of tensors)
+    into group ``g`` of ``cache[key]``'s stacked leaves, replacing a leaf
+    whose dtype the state changed."""
+    stacked = cache[key]
+    names = list(stacked) if isinstance(stacked, dict) else range(len(new))
+    leaves = {n: stacked[n] for n in names}
+    for n in names:
+        if leaves[n].dtype != new[n].dtype:
+            leaves[n] = leaves[n].to(new[n].dtype)
+        leaves[n][g].copy_(new[n])
+    if isinstance(stacked, dict):
+        stacked.update(leaves)
+    else:
+        cache[key] = tuple(leaves[n] for n in names)
 
 
 def _run_layers(params, x, positions, cfg, cache, kind: str):
     """Apply every layer in order, updating ``cache``; ``kind`` is the
     serving call (``prefill``, ``decode`` or ``append``)."""
-    attn_mix, rec_mix = _MIXES[kind]
+    attn_mix = _ATTN_MIXES[kind]
     for g in range(cfg.num_groups):
         for i, (mixer, ffn) in enumerate(cfg.pattern):
             blk = tree_map(lambda a: a[g], params["groups"][f"b{i}"])
-            layer_cache = {k: a[g] for k, a in cache[f"b{i}"].items()}
+            layer_cache = tree_map(lambda a: a[g], cache[f"b{i}"])
             h = common.rms_norm(x, blk["norm1"], cfg.norm_eps)
             if mixer in MIXERS_WITH_KV:
                 y, _ = attn_mix(blk["attn"], h, positions, cfg, layer_cache,
                                 local=mixer == BlockKind.ATTN_LOCAL)
             else:
-                y, new = rec_mix(blk["rglru"], h, cfg, layer_cache)
-                _store_state(cache[f"b{i}"], g, new)
+                rec = _RECURRENT[mixer]
+                mix = rec.decode if kind == "decode" else rec.forward
+                y, new = mix(blk[rec.key], h, cfg, layer_cache)
+                _store_state(cache, f"b{i}", g, new)
             x = x + y
             if ffn == BlockKind.MLP:
                 h = common.rms_norm(x, blk["norm2"], cfg.norm_eps)
@@ -297,8 +337,10 @@ def lm_prefill(params, batch, cfg: ModelConfig, cache, unroll: bool = False):
     """Process a full prompt, producing logits and a populated cache.
 
     Full-sequence attention (the flash kernel on the card) plus the cache
-    writes, and the RG-LRU scan (its kernel on the card) from the cached
-    state, layer by layer.  ``cache`` is updated in place and returned.
+    writes, the RG-LRU scan (its kernel on the card) from the cached
+    state, and the mLSTM and sLSTM recurrences from the cached state (no
+    kernel: as in the reference, only a fresh-state sequence reaches
+    those), layer by layer.  ``cache`` is updated in place and returned.
     """
     x, positions = _embed_inputs(params, batch, cfg)
     x = _run_layers(params, x, positions, cfg, cache, "prefill")

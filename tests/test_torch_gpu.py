@@ -539,3 +539,201 @@ def test_serve_cli_on_card_runs_both_attention_kernels(cuda, capsys):
                        "4"]) == 0
     assert fa.LAUNCHES > f0 and da_.LAUNCHES > d0
     assert "[serve] decoded 4 steps x 3 requests" in capsys.readouterr().out
+
+
+SLSTM_CASES = [  # (B, S, H, hb, dtype)
+    (8, 128, 4, 256, torch.bfloat16),   # launch.train: xlstm_350m
+    (8, 128, 4, 256, torch.float32),
+    *[(B, S, H, hb, dt) for B, S, H, hb in [(1, 32, 2, 16), (2, 64, 4, 32)]
+      for dt in (torch.float32, torch.bfloat16)],
+    (3, 7, 3, 40, torch.float32),       # hb not a multiple of 32
+]
+
+
+def _slstm_inputs(dev, B, S, H, hb, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = [torch.randn((B, S, H * hb), generator=gen, device=dev).to(dtype)
+          for _ in range(4)]
+    rs = [torch.randn((H, hb, hb), generator=gen, device=dev)
+          * (0.02 if hb >= 256 else 0.2) for _ in range(4)]
+    return xs + rs
+
+
+@pytest.mark.parametrize("B,S,H,hb,dtype", SLSTM_CASES)
+def test_slstm_kernel_matches_plain(cuda, B, S, H, hb, dtype):
+    from repro_torch.kernels import slstm as sl
+
+    args = _slstm_inputs(cuda, B, S, H, hb, dtype)
+    before = sl.LAUNCHES
+    got, again = sl.slstm(*args), sl.slstm(*args)
+    torch.cuda.synchronize()
+    assert sl.LAUNCHES == before + 2
+    want, _ = ref.naive_slstm(*args)
+    assert got.dtype == dtype
+    # float32: the dot products' order; bf16: one rounding of h_seq
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=8e-3, atol=1e-5))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, again)
+
+
+def test_slstm_autograd_gradients_equal_plain(cuda):
+    args = _slstm_inputs(cuda, 2, 20, 2, 32, torch.float32, seed=3)
+    w = torch.randn((2, 20, 64), generator=torch.Generator(
+        device=cuda).manual_seed(4), device=cuda)
+    grads = []
+    for fn in (ops.slstm_scan, ref.naive_slstm):
+        leaves_ = [t.clone().requires_grad_() for t in args]
+        h, _ = fn(*leaves_)
+        (h * w).sum().backward()
+        grads.append([t.grad for t in leaves_])
+    for g, p in zip(*grads):
+        assert torch.equal(g, p)
+
+
+def test_slstm_kernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import slstm as sl
+
+    xs_rs = _slstm_inputs(cuda, 2, 8, 2, 32, torch.float32)
+    xs, rs = xs_rs[:4], xs_rs[4:]
+    with pytest.raises(ValueError, match="contiguous"):
+        sl.slstm(xs[0].transpose(0, 1).contiguous().transpose(0, 1),
+                 *xs[1:], *rs)
+    with pytest.raises(ValueError, match="dtypes"):
+        sl.slstm(xs[0].bfloat16(), *xs[1:], *rs)
+    with pytest.raises(ValueError, match="dtypes"):
+        sl.slstm(*xs, rs[0].bfloat16(), *rs[1:])
+    with pytest.raises(ValueError, match="shapes"):
+        sl.slstm(*xs, *(r[:, :16, :16].contiguous() for r in rs))
+    with pytest.raises(ValueError, match="CUDA"):
+        sl.slstm(*(t.cpu() for t in xs_rs))
+
+
+MLSTM_CASES = [  # (B, S, H, D, chunk, dtype)
+    (8, 128, 4, 512, 128, torch.bfloat16),  # launch.train: xlstm_350m
+    (8, 128, 4, 512, 128, torch.float32),
+    (2, 512, 4, 512, 128, torch.bfloat16),  # four chunks
+    (2, 512, 4, 512, 128, torch.float32),
+    *[(B, S, H, D, ch, dt) for B, S, H, D in [(1, 64, 2, 32), (2, 128, 4, 64)]
+      for ch in (32, 64) for dt in (torch.float32, torch.bfloat16)],
+    (2, 12, 3, 40, 4, torch.float32),       # D not a multiple of 32
+]
+
+
+def _mlstm_inputs(dev, B, S, H, D, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    ig = torch.randn((B, S, H), generator=gen, device=dev)
+    fg = torch.randn((B, S, H), generator=gen, device=dev) + 3.0
+    return q, k, v, ig, fg
+
+
+@pytest.mark.parametrize("B,S,H,D,chunk,dtype", MLSTM_CASES)
+def test_mlstm_kernel_matches_plain(cuda, B, S, H, D, chunk, dtype):
+    from repro_torch.kernels import mlstm as ml
+
+    args = _mlstm_inputs(cuda, B, S, H, D, dtype)
+    before = ml.LAUNCHES
+    got = ml.mlstm(*args, chunk=chunk)
+    again = ml.mlstm(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ml.LAUNCHES == before + 2
+    want = ref.chunkwise_mlstm(*args, chunk=chunk)
+    assert got.dtype == dtype
+    # relative to the largest |h|: float32 sums in another order over a
+    # denominator that cancels; bf16 one rounding of h
+    rel = 5e-5 if dtype == torch.float32 else 8e-3
+    err = (got.float() - want.float()).abs().max()
+    assert err <= rel * want.float().abs().max()
+    assert torch.equal(got, again)
+
+
+def test_mlstm_autograd_gradients_equal_plain(cuda):
+    args = _mlstm_inputs(cuda, 2, 48, 2, 40, torch.float32, seed=3)
+    w = torch.randn(args[0].shape, generator=torch.Generator(
+        device=cuda).manual_seed(4), device=cuda)
+    grads = []
+    for fn in (ops.mlstm_scan,
+               lambda *a: (ref.chunkwise_mlstm(*a, chunk=16), None)):
+        leaves_ = [t.clone().requires_grad_() for t in args]
+        h, _ = fn(*leaves_)
+        (h * w).sum().backward()
+        grads.append([t.grad for t in leaves_])
+    for g, p in zip(*grads):
+        assert torch.equal(g, p)
+
+
+def test_mlstm_kernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import mlstm as ml
+
+    q, k, v, ig, fg = _mlstm_inputs(cuda, 2, 8, 2, 32, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ml.mlstm(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, ig, fg)
+    with pytest.raises(ValueError, match="dtypes"):
+        ml.mlstm(q, k.bfloat16(), v, ig, fg)
+    with pytest.raises(ValueError, match="dtypes"):
+        ml.mlstm(q, k, v, ig.bfloat16(), fg)
+    with pytest.raises(ValueError, match="shapes"):
+        ml.mlstm(q, k, v, ig[:, :4], fg)
+    with pytest.raises(ValueError, match="chunk"):
+        ml.mlstm(q, k, v, ig, fg, chunk=3)
+    big = torch.zeros((1, 4, 1, 520), device=cuda)
+    gate = torch.zeros((1, 4, 1), device=cuda)
+    with pytest.raises(ValueError, match="D <= 512"):
+        ml.mlstm(big, big, big, gate, gate)
+    with pytest.raises(ValueError, match="CUDA"):
+        ml.mlstm(q.cpu(), k.cpu(), v.cpu(), ig.cpu(), fg.cpu())
+
+
+def test_xlstm_smoke_model_on_card_matches_cpu(cuda):
+    """The smoke model (7 mLSTM + 1 sLSTM, norm_eps 1e-2 so that the
+    per-head norm is not steep): the forward launches each kernel once per
+    layer and agrees with the CPU's plain versions; prefill and decode
+    launch neither and agree with the CPU's recurrences."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import mlstm as ml
+    from repro_torch.kernels import slstm as sl
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(configs.get_smoke("xlstm_350m"), norm_eps=1e-2)
+    params = T.init_lm(cfg, seed=0, device="cpu")
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33),
+                         generator=torch.Generator().manual_seed(5))
+    outs = {}
+    for dev, p in (("cpu", params), (cuda, on_card)):
+        with torch.no_grad():
+            m0, s0 = ml.LAUNCHES, sl.LAUNCHES
+            fwd, _ = T.lm_forward(p, {"tokens": toks[:, :32].to(dev)}, cfg)
+            counts = (ml.LAUNCHES - m0, sl.LAUNCHES - s0)
+            cache = T.init_cache(cfg, 2, 64, device=dev)
+            pre, cache = T.lm_prefill(p, {"tokens": toks[:, :32].to(dev)},
+                                      cfg, cache)
+            dec, _ = T.lm_decode_step(
+                p, toks[:, 32:].to(dev).int(),
+                torch.full((2, 1), 32, dtype=torch.int32, device=dev), cfg,
+                cache)
+            outs[str(dev)] = (fwd.cpu(), pre.cpu(), dec.cpu(), counts,
+                              (ml.LAUNCHES - m0, sl.LAUNCHES - s0))
+    host, card = outs["cpu"], outs[str(cuda)]
+    assert card[3] == (7, 1) and card[4] == (7, 1) and host[4] == (0, 0)
+    for a, b in zip(card[:3], host[:3]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_train_cli_xlstm_smoke_on_card(cuda, tmp_path, capsys):
+    """``launch.train --arch xlstm_350m --smoke`` on the card: per step
+    one mlstm launch per mLSTM layer (7) and one slstm launch (1)."""
+    from repro_torch.kernels import mlstm as ml
+    from repro_torch.kernels import slstm as sl
+    from repro_torch.launch import train
+
+    m0, s0 = ml.LAUNCHES, sl.LAUNCHES
+    assert train.main(["--arch", "xlstm_350m", "--smoke", "--steps", "3",
+                       "--registry", str(tmp_path)]) == 0
+    assert (ml.LAUNCHES - m0, sl.LAUNCHES - s0) == (3 * 7, 3 * 1)
+    assert "[train] done; final loss" in capsys.readouterr().out
