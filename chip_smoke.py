@@ -7,7 +7,11 @@ Phases, each fatal on failure (no phase catches its own error):
 
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: compiles the port's CUDA kernels from ``src/repro_torch/csrc``
-     and prints the build time and ptxas's register report;
+     and prints the build time and ptxas's register report (registers,
+     shared memory, spills; the two attention kernels' lines again on
+     their own), and, where ``cuobjdump`` exists, the count of ``HGMMA``
+     instructions in each tensor-core flash kernel's SASS (at least one
+     each, or the phase fails);
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the main path's shapes and at ragged shapes, with times (CUDA
      graphs of back-to-back calls, timed with CUDA events) beside the
@@ -22,7 +26,12 @@ Phases, each fatal on failure (no phase catches its own error):
      The flash-attention kernel is held to its plain version at the
      training and prefill shapes of the paths, at the sweep of
      ``tests/test_kernels.py`` and on masking edge cases (rows whose first
-     kv tile is fully masked, ragged lengths, rows with no valid key);
+     kv tile is fully masked, ragged lengths, rows with no valid key),
+     each case on the route its (dtype, head dim) picks (the wgmma
+     counter says which ran: bf16 with D % 16 == 0 on the tensor cores,
+     float32 on the float32 pipes); at the timed shapes of both attention
+     kernels the profiler also gives the kernel's own device time and
+     shows one kernel launch a call;
      both attention kernels also at recurrentgemma_2b's head_dim 256 with
      10 query heads over 1 kv head (its prefill, a 2304-token prompt past
      the 2048 window, its decode cache and a local ring past the window).
@@ -54,7 +63,10 @@ Phases, each fatal on failure (no phase catches its own error):
      with ``--precopy --compression int8`` and with ``--workload serving
      --precopy --compression int8`` (the serving engine on the card);
      each must verify its migrated state (and exactly-once delivery for
-     serving) and launch the kernels of its path.  Then training:
+     serving) and launch the kernels of its path.  Every flash launch of
+     ``launch.train``, ``launch.serve`` (smollm_360m and recurrentgemma_2b,
+     bf16) must take the wgmma route, and every one of the paper-consumer
+     trainer migrations (float32) the float32 route.  Then training:
      ``repro_torch.launch.train`` with its defaults (smollm_360m at full
      width) for 8 steps, and ``--resume`` to 10 steps from its last image
      (about 13 GB of checkpoint images in a temporary registry under
@@ -75,7 +87,8 @@ Phases, each fatal on failure (no phase catches its own error):
      with int8 deltas (``benchmarks/delta_precopy.py``'s trainer
      workload), each verified bit for bit against the reference fold.
 
-The line before the last is the kernel table as JSON; the last line is
+Before the two JSON lines it prints the script's own run time.  The line
+before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 repository's ``src/`` beside this file, the script exits non-zero and
 prints no result.
@@ -172,6 +185,41 @@ def graph_ms(fn, reps: int = 50, graphs: int = 5) -> float:
     return start.elapsed_time(end) / (graphs * reps)
 
 
+def device_entries(fn, calls: int = 20) -> list:
+    """Every device entry of ``calls`` eager ``fn()`` calls under
+    ``torch.profiler``: (name, count per call, device us per call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            rows.append((e.key, e.count / calls, us / calls))
+    return rows
+
+
+def kernel_entry(label, fn, name: str, calls: int = 20) -> float:
+    """The device us per call of ``fn``'s kernel (entries whose name holds
+    ``name``): one launch a call, beside the other entries it makes (the
+    output's fill under deterministic mode)."""
+    rows = device_entries(fn, calls)
+    print(f"[kernels] {label} device entries per call: " + "; ".join(
+        f"{n[:60]} x{c:g} {us:.2f} us" for n, c, us in rows))
+    mine = [(c, us) for n, c, us in rows if name in n]
+    check(len(mine) == 1 and mine[0][0] == 1,
+          f"{label}: want one {name} kernel a call, the profiler shows "
+          f"{rows}")
+    return mine[0][1]
+
+
 def bound(nbytes: int, ops: int, peak_ops_s: float = PEAK_F32_OPS_S):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / peak_ops_s * 1e3
@@ -193,17 +241,48 @@ def card_phase() -> str:
     return card
 
 
+NEW_KERNELS = ("flash_wgmma_kernel", "decode_cluster_kernel")
+
+
 def build_phase() -> None:
+    """Builds the kernels; prints ptxas's report (registers, shared memory,
+    spills) and, where ``cuobjdump`` exists, the count of ``HGMMA``
+    (wgmma) instructions in each tensor-core flash kernel's SASS."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.library()
+    lib = build.library()
     dt = time.perf_counter() - t0
     print(f"[build] kernels built and loaded in {dt:.3f} s")
+    entry = None
     for line in build.build_log.splitlines():
         if ("registers" in line or "spill" in line or line.startswith("==")
                 or "Compiling entry function" in line):
             print(f"[build] {line.strip()}")
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and any(k in entry for k in NEW_KERNELS) and (
+                "spill" in line or "registers" in line):
+            print(f"[build] new kernel {entry}: {line.strip()}")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("[build] no cuobjdump: HGMMA not counted")
+        return
+    sass = subprocess.run([tool, "-sass", lib._name], capture_output=True,
+                          text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump: {sass.stderr.strip()[:200]}")
+    counts, fn = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "flash_wgmma_kernel" in fn:
+                counts[fn] = 0
+        elif fn in counts and "HGMMA" in line:
+            counts[fn] += 1
+    for fn, n in counts.items():
+        print(f"[build] SASS {fn}: {n} HGMMA instructions")
+    check(counts and all(counts.values()),
+          f"the tensor-core flash kernel has no HGMMA in its SASS: {counts}")
 
 
 def decode_inputs(gen, B, S, H, Hkv, D, dtype, ring: bool, window: int = 0):
@@ -280,13 +359,16 @@ def kernel_phase():
               f"decode {label}: two launches differ")
         if label == "main":
             main_err = err
-        if label in ("main", "rg-serve", "rg-ring"):
+        if label in ("main", "smollm-serve", "rg-serve", "rg-ring"):
             timed[label] = (q, k, v, qp, kp, err, tol)
     by_shape = {}
     for label, (q, k, v, qp, kp, err, tol) in timed.items():
         B, _, H, D = q.shape
         S, Hkv = k.shape[1], k.shape[2]
         ms = graph_ms(lambda: da.decode_attention(q, k, v, qp, kp))
+        kernel_us = kernel_entry(f"decode_attention {label}",
+                                 lambda: da.decode_attention(q, k, v, qp, kp),
+                                 "decode_cluster_kernel")
         plain_ms = graph_ms(lambda: ref.decode_attention(q, k, v, q_pos=qp,
                                                          k_pos=kp))
         qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -304,10 +386,12 @@ def kernel_phase():
                   + qp.nbytes + kp.nbytes)
         b_ms, b_by = bound(nbytes, 4 * H * n_valid * D)
         by_shape[label] = dict(shape=[B, S, H, Hkv, D], max_abs_err=err,
-                               ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by, library_ms=library_ms)
+                               ms=ms, kernel_us=kernel_us, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by,
+                               library_ms=library_ms)
         print(f"[kernels] decode_attention {label}: {ms * 1e3:.2f} us "
-              f"kernel, {plain_ms * 1e3:.2f} us plain, {library_ms * 1e3:.2f}"
+              f"a call ({kernel_us:.2f} us the kernel alone), "
+              f"{plain_ms * 1e3:.2f} us plain, {library_ms * 1e3:.2f}"
               f" us SDPA, bound {b_ms * 1e3:.3f} us ({b_by}, {nbytes} bytes)")
     main = by_shape["main"]
     rows["decode_attention"] = dict(
@@ -437,15 +521,23 @@ def flash_kernel(gen):
         q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
         k = torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda").to(dtype)
         v = torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda").to(dtype)
+        wgmma_before = fa.WGMMA_LAUNCHES
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
         again = fa.flash_attention(q, k, v, causal=causal, window=window)
         want = ref.naive_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         tol = FLASH_TOL if dtype == torch.float32 else FLASH_TOL_BF16
         err = (got.float() - want.float()).abs().max().item()
+        route = ("wgmma" if dtype == torch.bfloat16 and D % 16 == 0
+                 else "float32")
         print(f"[kernels] flash_attention {label} q[{B},{Sq},{H},{D}] "
               f"k[{B},{Sk},{Hkv},{D}] {str(dtype)[6:]} causal={causal} "
-              f"window={window}: max_abs_err={err:.3e}")
+              f"window={window} route={route}: max_abs_err={err:.3e}")
+        check(fa.WGMMA_LAUNCHES - wgmma_before == (2 if route == "wgmma"
+                                                   else 0),
+              f"flash {label}: want both launches on the {route} route, "
+              f"the wgmma counter moved by "
+              f"{fa.WGMMA_LAUNCHES - wgmma_before}")
         check(bool(torch.isfinite(got).all()), f"flash {label}: non-finite")
         check(torch.allclose(got.float(), want.float(), **tol),
               f"flash {label}: kernel disagrees with the plain version "
@@ -457,6 +549,11 @@ def flash_kernel(gen):
         reps = 50 if Sq <= 128 else 5
         ms = graph_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
                                                  window=window), reps=reps)
+        kernel_us = kernel_entry(
+            f"flash_attention {label}",
+            lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
+            "flash_wgmma_kernel" if route == "wgmma"
+            else "flash_attention_kernel", calls=20 if Sq <= 128 else 5)
         plain_ms = graph_ms(lambda: ref.naive_attention(
             q, k, v, causal=causal, window=window), reps=reps)
         qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
@@ -476,12 +573,14 @@ def flash_kernel(gen):
         nbytes, ops_n = flash_work(q, k, causal, window)
         peak = PEAK_BF16_OPS_S if dtype == torch.bfloat16 else PEAK_F32_OPS_S
         b_ms, b_by = bound(nbytes, ops_n, peak)
-        print(f"[kernels] flash_attention {label}: {ms * 1e3:.2f} us kernel, "
+        print(f"[kernels] flash_attention {label}: {ms * 1e3:.2f} us a call "
+              f"({kernel_us:.2f} us the kernel alone, route {route}), "
               f"{plain_ms * 1e3:.2f} us plain, {library_ms * 1e3:.2f} us "
               f"SDPA, bound {b_ms * 1e3:.3f} us ({b_by}, {nbytes} bytes, "
               f"{ops_n} operations)")
-        by_shape[label] = dict(shape=[B, Sq, Sk, H, Hkv, D], max_abs_err=err,
-                               ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        by_shape[label] = dict(shape=[B, Sq, Sk, H, Hkv, D], route=route,
+                               max_abs_err=err, ms=ms, kernel_us=kernel_us,
+                               plain_ms=plain_ms, bound_ms=b_ms,
                                bound_by=b_by, library_ms=library_ms)
         if row is None:
             row = dict(
@@ -1255,6 +1354,7 @@ def reset_counts() -> None:
     ck, mods = _counters()
     for mod in mods.values():
         mod.LAUNCHES = 0
+    mods["flash_attention"].WGMMA_LAUNCHES = 0
     for name in ck.LAUNCHES:
         ck.LAUNCHES[name] = 0
 
@@ -1266,19 +1366,29 @@ def read_counts() -> dict:
     return {name: counts[name] for name in KERNELS}
 
 
-def run_path(label, fn, needs):
+def run_path(label, fn, needs, flash_route=None):
     """Run ``fn()`` with every counter set to 0 just before and read just
-    after; each kernel in ``needs`` must have launched.  -> (launches,
-    fn's result, wall seconds)."""
+    after; each kernel in ``needs`` must have launched, and with
+    ``flash_route`` ("wgmma" or "float32") every flash launch must have
+    taken that route.  -> (launches, fn's result, wall seconds)."""
+    from repro_torch.kernels import flash_attention as fa
+
     reset_counts()
     t0 = time.perf_counter()
     result = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
-    print(f"[path] {label}: wall={wall:.3f} s launches={launches}")
+    wgmma = fa.WGMMA_LAUNCHES
+    print(f"[path] {label}: wall={wall:.3f} s launches={launches} "
+          f"flash on the wgmma route={wgmma}")
     for name in needs:
         check(launches[name] > 0, f"{label}: kernel {name} never launched")
+    if flash_route:
+        flash = launches["flash_attention"]
+        check(flash > 0 and wgmma == (flash if flash_route == "wgmma" else 0),
+              f"{label}: {wgmma} of {flash} flash launches on the wgmma "
+              f"route, want every one on the {flash_route} route")
     return launches, result, wall
 
 
@@ -1346,7 +1456,7 @@ def train_paths(paths) -> None:
                  "[train] resumed from step 7 image")):
             launches, (rc, text), wall = run_path(
                 label, lambda: _captured(train.main, argv),
-                ("flash_attention", "fingerprint_lanes"))
+                ("flash_attention", "fingerprint_lanes"), "wgmma")
             paths[label] = launches
             check(rc == 0, f"{label}: launch.train exited {rc}")
             loss = float(text.split("[train] done; final loss")[1].split()[0])
@@ -1368,7 +1478,7 @@ def train_paths(paths) -> None:
     # phase (smollm_readings)
     launches, (rc, text), _ = run_path(
         "serve", lambda: _captured(serve.main, []),
-        ("flash_attention", "decode_attention"))
+        ("flash_attention", "decode_attention"), "wgmma")
     paths["serve"] = launches
     check(rc == 0, f"serve: launch.serve exited {rc}")
     check("[serve] decoded 32 steps x 8 requests" in text,
@@ -1554,7 +1664,7 @@ def rg_serve_paths(paths) -> None:
               else contextlib.nullcontext()):
             launches, (rc, text), wall = run_path(
                 label, lambda: _captured(serve.main, argv),
-                ("rglru", "flash_attention", "decode_attention"))
+                ("rglru", "flash_attention", "decode_attention"), "wgmma")
         paths[label] = launches
         check(rc == 0, f"{label}: launch.serve exited {rc}")
         for line in (f"[serve] prefill {prompt} tokens x {B} requests: ",
@@ -1879,7 +1989,7 @@ def trainer_migration_paths(paths) -> None:
             launches, r, wall = run_path(
                 label, lambda: run_migration_experiment(
                     strategy, 4.0, registry_root=root, worker_factory=make,
-                    **kw), needs)
+                    **kw), needs, "float32")
         paths[label] = launches
         row = r.row()
         steps = launches["flash_attention"] // layers
@@ -1898,6 +2008,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA card", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
@@ -1928,6 +2039,8 @@ def main() -> int:
         row["launches"] = sum(p[name] for p in paths.values())
         row["launches_by_path"] = {label: p[name]
                                    for label, p in paths.items()}
+    print(f"[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
+          "(the kernels' build included)")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

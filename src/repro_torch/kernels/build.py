@@ -21,7 +21,10 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+# --split-compile=0: each nvcc optimizes and assembles its kernels on all
+# CPUs (the decode source instantiates its kernel for 55 shapes of work)
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+         "--split-compile=0"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

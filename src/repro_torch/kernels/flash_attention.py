@@ -1,10 +1,15 @@
 """CUDA kernel for train/prefill attention, and its autograd wrapper.
 
-Port of ``repro.kernels.flash_attention`` (a Pallas TPU kernel) to a
-hand-written kernel for Hopper, ``csrc/flash_attention.cu``; the source
+Port of ``repro.kernels.flash_attention`` (a Pallas TPU kernel) to
+hand-written kernels for Hopper, ``csrc/flash_attention.cu``; the source
 says what bounds it and how its design meets that.  Its plain PyTorch
 version is ``repro_torch.kernels.ref.naive_attention``, which
 ``ops.attention`` runs for CPU tensors.
+
+Two routes, picked by ``route(dtype, D)`` and nothing else: bf16 with
+``D % 16 == 0`` runs on the tensor cores (``wgmma``, K/V tiles by TMA);
+float32, and bf16 with another D, run on the float32 pipes.  Float32 is
+kept off the tensor cores because they would round its products to TF32.
 
 The reference has no backward kernel (JAX differentiates its jnp path),
 and neither has the port yet: ``FlashAttention``'s backward recomputes
@@ -25,29 +30,42 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import attn_scale
 
-LAUNCHES = 0  # wrapper calls that launched the kernel (main-path evidence)
+LAUNCHES = 0  # wrapper calls that launched a kernel (main-path evidence)
+WGMMA_LAUNCHES = 0  # of those, the ones on the wgmma route
 
 MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_entry = None
+_entries = {}
 
 
-def _launcher():
-    global _entry
-    if _entry is None:
+def route(dtype: torch.dtype, D: int) -> str:
+    """"wgmma" (bf16, D a multiple of 16: tensor cores) or "float32" (the
+    float32 pipes: float32, and bf16 with another D)."""
+    if dtype not in _DTYPE_CODES or not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"dtype {dtype}, D={D}: the kernel takes "
+                         f"{list(_DTYPE_CODES)} and D <= {MAX_HEAD_DIM}")
+    return "wgmma" if dtype == torch.bfloat16 and D % 16 == 0 else "float32"
+
+
+def _launcher(name: str):
+    if name not in _entries:
         p, i = ctypes.c_void_p, ctypes.c_int
-        _entry = build.entry("flash_attention_launch",
-                             [i, p, p, p, p, i, i, i, i, i, i, i, i,
-                              ctypes.c_float, p])
-    return _entry
+        args = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        if name == "float32":
+            args = [i] + args
+        _entries[name] = build.entry(
+            {"float32": "flash_attention_launch",
+             "wgmma": "flash_attention_wgmma_launch"}[name], args)
+    return _entries[name]
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q [B,Sq,H,D]; k/v [B,Sk,Hkv,D] -> [B,Sq,H,D] in q's dtype.
 
-    Launches the CUDA kernel; every tensor must lie on the current CUDA
-    device, contiguous, float32 or bfloat16 alike."""
-    global LAUNCHES
+    Launches the CUDA kernel of ``route(q.dtype, D)``; every tensor must
+    lie on the current CUDA device, contiguous, float32 or bfloat16 alike
+    (16-byte aligned on the wgmma route)."""
+    global LAUNCHES, WGMMA_LAUNCHES
     if not q.is_cuda:
         raise ValueError("flash_attention kernel needs CUDA tensors "
                          "(ops.attention runs the plain version on CPU)")
@@ -68,14 +86,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                          "CUDA device")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention inputs must be contiguous")
+    path = route(q.dtype, D)
+    if path == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention inputs must be 16-byte aligned "
+                         "on the wgmma route")
     out = torch.empty_like(q)
-    err = _launcher()(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, Sq, Sk, H, Hkv, D, int(bool(causal)),
-        int(window or 0), attn_scale(D),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check("flash_attention", err)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Sk, H, Hkv, D, int(bool(causal)), int(window or 0),
+            attn_scale(D), torch.cuda.current_stream(q.device).cuda_stream)
+    if path == "float32":
+        args = (_DTYPE_CODES[q.dtype],) + args
+    build.check("flash_attention", _launcher(path)(*args))
     LAUNCHES += 1
+    WGMMA_LAUNCHES += path == "wgmma"
     return out
 
 

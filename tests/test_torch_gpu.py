@@ -328,6 +328,54 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, Hkv, D, causal,
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 256),
+                                     (torch.bfloat16, 16),
+                                     (torch.bfloat16, 20),
+                                     (torch.float32, 64),
+                                     (torch.float32, 256)])
+def test_flash_route_counter(cuda, dtype, D):
+    """bf16 with D % 16 == 0 launches the tensor-core kernel; float32, and
+    bf16 with another D, the float32 one: LAUNCHES counts both,
+    WGMMA_LAUNCHES the first."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _flash_inputs(cuda, 2, 80, 80, 4, 2, D, dtype)
+    total, wgmma = fa.LAUNCHES, fa.WGMMA_LAUNCHES
+    fa.flash_attention(q, k, v, causal=True, window=0)
+    torch.cuda.synchronize()
+    on_wgmma = dtype == torch.bfloat16 and D % 16 == 0
+    assert fa.route(dtype, D) == ("wgmma" if on_wgmma else "float32")
+    assert fa.LAUNCHES == total + 1
+    assert fa.WGMMA_LAUNCHES == wgmma + on_wgmma
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window", [
+    (2, 100, 100, 6, 2, 64, True, 0),     # Sq not a multiple of 64
+    (3, 33, 33, 10, 1, 256, True, 2048),  # the serving prefill's ragged tile
+    (2, 77, 150, 4, 2, 128, True, 64),    # Sq < Sk, ragged both
+    (1, 130, 130, 2, 1, 32, False, 0),    # no mask, 2 rows in the last tile
+    (2, 200, 72, 4, 2, 48, True, 16),     # rows with no valid key
+])
+def test_flash_wgmma_route_ragged_rows(cuda, B, Sq, Sk, H, Hkv, D, causal,
+                                       window):
+    """The tensor-core route with query rows past Sq in the last 64-row
+    tile: they are masked at the store, and nothing else moves."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _flash_inputs(cuda, B, Sq, Sk, H, Hkv, D, torch.bfloat16,
+                            seed=5)
+    wgmma = fa.WGMMA_LAUNCHES
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.WGMMA_LAUNCHES == wgmma + 1
+    want = ref.naive_attention(q, k, v, causal=causal, window=window)
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), **TOL_BF16)
+    assert torch.equal(got, fa.flash_attention(q, k, v, causal=causal,
+                                               window=window))
+
+
 @pytest.mark.parametrize("window", [0, 24])
 def test_flash_autograd_gradients_equal_plain(cuda, window):
     q, k, v = _flash_inputs(cuda, 2, 80, 80, 4, 2, 32, torch.float32, seed=3)

@@ -94,9 +94,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 @pytest.mark.parametrize("S", [32, 100, 2048, 5000])
 def test_decode_split_plan_covers_the_cache(S):
-    split_len, n_split = tda.split_plan(S)
-    assert split_len % 32 == 0 and n_split <= 64
-    assert (n_split - 1) * split_len < S <= n_split * split_len
+    """The decode kernel's cluster: its CTAs' runs of keys cover the cache,
+    none of them empty, within the portable cluster size."""
+    plan = tda.decode_plan(1, S, 4, 2, 32, 4)
+    per_cta = tda.WARPS * plan.keys_per_warp
+    assert 1 <= plan.cluster <= tda.MAX_CLUSTER
+    assert (plan.cluster - 1) * per_cta < S <= plan.cluster * per_cta
 
 
 @pytest.mark.parametrize("C,R", [(1, 1), (1, 8192), (3, 77)])
