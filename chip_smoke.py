@@ -36,10 +36,16 @@ Phases, each fatal on failure (no phase catches its own error):
      10 query heads over 1 kv head (its prefill, a 2304-token prompt past
      the 2048 window, its decode cache and a local ring past the window).
      The RG-LRU kernel at ``launch.serve``'s prefill, the 2304-token
-     prompt, ``tests/test_kernels.py``'s shapes, with h0, one step and a
-     ragged width, and its autograd gradient against the plain version's.
-     The sLSTM kernel at xlstm_350m's train shape, ``tests/test_kernels.py``'s
-     shapes and a ragged head width; the mLSTM kernel at the train shape
+     prompt, ``tests/test_kernels.py``'s shapes, with h0, one step, a
+     ragged width, a slow decay (a_t near 1), a large h0 and sequences
+     ending one step either side of a chunk boundary, each case's plan
+     printed and the cases bit-equal to the plain version counted, and its
+     autograd gradient against the plain version's.  The sLSTM kernel at
+     xlstm_350m's train shape, ``tests/test_kernels.py``'s shapes, a ragged
+     head width, batches of 3, 5 and 1, one head and hb 512, each on the
+     route its plan picks (the cluster-route counter says which ran; at
+     the train shape the L2 route gives the cluster route's bits); the
+     mLSTM kernel at the train shape
      (one chunk), over four chunks, at ``tests/test_kernels.py``'s shapes
      and chunks and a ragged head dim; both in float32 and bf16, with
      their autograd gradients against the plain versions';
@@ -78,7 +84,8 @@ Phases, each fatal on failure (no phase catches its own error):
      give, and the default run's cache after prefill pushed through the
      registry (fingerprints on the card), pulled, and decoded 8 steps
      bit-equal to the source; ``launch.train --arch xlstm_350m`` (full
-     width, 4 steps: 21 ``mlstm`` and 3 ``slstm`` launches a step) and
+     width, 4 steps: 21 ``mlstm`` and 3 ``slstm`` launches a step, every
+     ``slstm`` launch on the cluster route) and
      ``launch.serve --arch xlstm_350m`` with its defaults, its cache after
      prefill (706,415,232 bytes of recurrent state) through the registry
      and decoded 8 steps bit-equal; and a paper-consumer
@@ -606,6 +613,15 @@ RGLRU_CASES = [  # (label, B, S, W, dtype, h0: None, "zeros" or "random")
     ("h0-bf16", 2, 128, 256, torch.bfloat16, "random"),
     ("one-step", 3, 1, 2560, torch.bfloat16, "random"),
     ("ragged-width", 2, 33, 70, torch.float32, "random"),
+    # a_t = 0.95..1.0 (a_param drawn near +6), where a state carried across
+    # chunks keeps its rounding longest; a large h0; the long prompt's chunk
+    # of 56 steps (rglru.scan_plan) ending one step before and after S
+    ("slow-decay", 2, 2304, 2560, torch.float32, "random"),
+    ("slow-decay-bf16", 2, 2304, 2560, torch.bfloat16, "random"),
+    ("h0-large", 2, 2304, 2560, torch.float32, "large"),
+    ("slow-decay-h0-large", 2, 2304, 2560, torch.float32, "large"),
+    ("chunk-boundary+1", 2, 56 * 40 + 1, 2560, torch.float32, "random"),
+    ("chunk-boundary-1", 2, 56 * 40 - 1, 2560, torch.bfloat16, "random"),
 ]
 RGLRU_TIMED = ("rg-serve", "rg-long")
 RGLRU_TOL = dict(rtol=1e-5, atol=1e-6)        # float32 state, libm ulps
@@ -623,22 +639,29 @@ def rglru_kernel(gen):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rglru as rg
 
-    row, by_shape = None, {}
+    row, by_shape, bit_equal = None, {}, []
     for label, B, S, W, dtype, h0 in RGLRU_CASES:
         x, ga, gx = (torch.randn((B, S, W), generator=gen, device="cuda")
                      .to(dtype) for _ in range(3))
         a = torch.randn((W,), generator=gen, device="cuda")
+        if label.startswith("slow-decay") or label.startswith("chunk"):
+            a = 6.0 + 0.5 * a
         h = {None: None,
              "zeros": torch.zeros((B, W), device="cuda"),
-             "random": torch.randn((B, W), generator=gen, device="cuda")}[h0]
+             "random": torch.randn((B, W), generator=gen, device="cuda"),
+             "large": 100 * torch.randn((B, W), generator=gen,
+                                        device="cuda")}[h0]
         got = rg.rglru(x, a, ga, gx, h)
         again = rg.rglru(x, a, ga, gx, h)
         want = ref.naive_rglru(x, a, ga, gx, h)
         torch.cuda.synchronize()
         err = max((g.float() - w.float()).abs().max().item()
                   for g, w in zip(got, want))
+        if all(torch.equal(g, w) for g, w in zip(got, want)):
+            bit_equal.append(label)
         print(f"[kernels] rglru {label} [{B},{S},{W}] {str(dtype)[6:]} "
-              f"h0={h0}: max_abs_err={err:.3e}")
+              f"h0={h0} plan={tuple(rg.scan_plan(B, S, W))}: "
+              f"max_abs_err={err:.3e}")
         check(got[0].dtype == dtype and got[1].dtype == torch.float32,
               f"rglru {label}: output dtypes {got[0].dtype}, {got[1].dtype}")
         check(all(bool(torch.isfinite(g).all()) for g in got),
@@ -663,7 +686,9 @@ def rglru_kernel(gen):
         print(f"[kernels] rglru {label}: {ms * 1e3:.2f} us kernel, "
               f"{plain_ms * 1e3:.2f} us plain, bound {b_ms * 1e3:.3f} us "
               f"({b_by}, {nbytes} bytes)")
-        by_shape[label] = dict(shape=[B, S, W], max_abs_err=err, ms=ms,
+        by_shape[label] = dict(shape=[B, S, W],
+                               plan=list(rg.scan_plan(B, S, W)),
+                               max_abs_err=err, ms=ms,
                                plain_ms=plain_ms, bound_ms=b_ms,
                                bound_by=b_by, library_ms=None)
         if row is None:
@@ -690,7 +715,10 @@ def rglru_kernel(gen):
           "version's")
     print("[kernels] rglru autograd: gradients bit-equal to the plain "
           "version's")
+    print(f"[kernels] rglru: bit-equal to the plain version at "
+          f"{len(bit_equal)} of {len(RGLRU_CASES)} cases ({bit_equal})")
     row["by_shape"] = by_shape
+    row["bit_equal_cases"] = len(bit_equal)
     return row
 
 
@@ -703,6 +731,13 @@ SLSTM_CASES = [  # (label, B, S, H, hb, dtype)
       for B, S, H, hb in [(1, 32, 2, 16), (2, 64, 4, 32)]
       for dt in (torch.float32, torch.bfloat16)],
     ("ragged", 3, 7, 3, 40, torch.float32),  # hb not a multiple of 32
+    # batch groups that do not divide, one head, and hb 512, whose r slice
+    # does not fit a cluster's shared memory (the L2 route)
+    ("b3", 3, 128, 4, 256, torch.bfloat16),
+    ("b5", 5, 64, 4, 256, torch.float32),
+    ("b1", 1, 128, 4, 256, torch.bfloat16),
+    ("h1", 8, 64, 1, 256, torch.float32),
+    ("hb512-l2", 2, 32, 2, 512, torch.float32),
 ]
 SLSTM_TOL = dict(rtol=1e-5, atol=1e-5)       # float32, dot-product order
 SLSTM_TOL_BF16 = dict(rtol=8e-3, atol=1e-5)  # one bf16 rounding of h_seq
@@ -779,11 +814,29 @@ def slstm_kernel(gen):
         rs = [torch.randn((H, hb, hb), generator=gen, device="cuda")
               * (0.02 if hb >= 256 else 0.2) for _ in range(4)]
         tol = SLSTM_TOL if dtype == torch.float32 else SLSTM_TOL_BF16
+        plan = sl.slstm_plan(B, H, hb)
+        before = sl.CLUSTER_LAUNCHES
         err = _two_launches(lambda: sl.slstm(*xs, *rs),
                             lambda: ref.naive_slstm(*xs, *rs)[0], label,
                             "slstm", tol=tol)
+        on_cluster = sl.CLUSTER_LAUNCHES - before
+        check(on_cluster == (2 if plan.route == "cluster" else 0),
+              f"slstm {label}: {on_cluster} of 2 launches on the cluster "
+              f"route, plan {plan}")
+        check((label != "hb512-l2" or plan.route == "l2")
+              and (not label.startswith("xl-train")
+                   or plan.route == "cluster"),
+              f"slstm {label}: plan {plan}")
         print(f"[kernels] slstm {label} [{B},{S},{W}] H={H} "
-              f"{str(dtype)[6:]}: max_abs_err={err:.3e}")
+              f"{str(dtype)[6:]} plan={tuple(plan)}: max_abs_err={err:.3e}")
+        if label.startswith("xl-train"):
+            # both routes share their arithmetic: the same bits
+            l2 = sl.slstm(*xs, *rs, plan=sl.SLSTMPlan("l2", 0, hb, 1))
+            check(torch.equal(l2, sl.slstm(*xs, *rs)),
+                  f"slstm {label}: the L2 route's bits differ from the "
+                  "cluster route's")
+            print(f"[kernels] slstm {label}: the L2 route gives the cluster "
+                  "route's bits")
         if label != "xl-train":
             continue
         ms = graph_ms(lambda: sl.slstm(*xs, *rs))
@@ -801,7 +854,7 @@ def slstm_kernel(gen):
                    replaces="src/repro/kernels/slstm.py:71",
                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                    bound_by=b_by, library_ms=None,
-                   by_shape={label: dict(shape=[B, S, W, H],
+                   by_shape={label: dict(shape=[B, S, W, H], plan=list(plan),
                                          max_abs_err=err, ms=ms,
                                          plain_ms=plain_ms, bound_ms=b_ms,
                                          bound_by=b_by, library_ms=None)})
@@ -1355,6 +1408,7 @@ def reset_counts() -> None:
     for mod in mods.values():
         mod.LAUNCHES = 0
     mods["flash_attention"].WGMMA_LAUNCHES = 0
+    mods["slstm"].CLUSTER_LAUNCHES = 0
     for name in ck.LAUNCHES:
         ck.LAUNCHES[name] = 0
 
@@ -1929,6 +1983,13 @@ def xl_paths(paths) -> None:
         shutil.rmtree(root, ignore_errors=True)
     paths["train-xl"] = launches
     check(rc == 0, f"train-xl: launch.train exited {rc}")
+    from repro_torch.kernels import slstm as sl
+    check(sl.CLUSTER_LAUNCHES == launches["slstm"],
+          f"train-xl: {sl.CLUSTER_LAUNCHES} of {launches['slstm']} slstm "
+          "launches on the cluster route, want every one")
+    plan = sl.slstm_plan(8, cfg.num_heads, cfg.d_model // cfg.num_heads)
+    print(f"[path] train-xl: {sl.CLUSTER_LAUNCHES} of {launches['slstm']} "
+          f"slstm launches on the cluster route (plan {tuple(plan)})")
     loss = float(text.split("[train] done; final loss")[1].split()[0])
     check(math.isfinite(loss), f"train-xl: final loss {loss}")
     check((launches["mlstm"], launches["slstm"])

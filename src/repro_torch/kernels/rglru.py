@@ -2,20 +2,24 @@
 
 Port of ``repro.kernels.rglru`` (a Pallas TPU kernel) to a hand-written
 kernel for Hopper, ``csrc/rglru.cu``; the source says what bounds it and
-how its design meets that.  Its plain PyTorch version is
-``repro_torch.kernels.ref.naive_rglru``, which ``ops.rglru_scan`` runs for
-CPU tensors.
+how its design meets that: the gates computed chunk by chunk over (b,
+chunk, w) while one warp carries each channel's state through the chunks
+in order, laid out by ``scan_plan``.  Its plain PyTorch
+version is ``repro_torch.kernels.ref.naive_rglru``, which
+``ops.rglru_scan`` runs for CPU tensors.
 
 The reference has no backward kernel (JAX differentiates its jnp path),
 and neither has the port: ``RGLRUScan``'s backward recomputes the plain
 version from the saved inputs and returns its gradients.
 
-Each thread walks its channel's sequence in order, so two launches give
-the same bits.
+One warp walks each channel's chain through the chunks in order, with the
+plain version's two roundings a step, so the kernel gives the plain
+version's bits, and two launches give the same bits.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -24,8 +28,38 @@ from repro_torch.kernels import ref
 
 LAUNCHES = 0  # wrapper calls that launched the kernel (main-path evidence)
 
+PRODUCERS = 7        # warps computing gates (csrc: kProducers)
+LANE_STEPS = (1, 2, 4, 8)  # steps a producer lane takes a chunk
+LONG = 224           # sequences this long take 4 steps a lane, else 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _entry = None
+
+
+class ScanPlan(NamedTuple):
+    chunk: int      # steps a chunk: PRODUCERS * 2 * steps_per_lane
+    n_chunks: int   # chunks of the sequence, walked in order
+
+
+def scan_plan(B: int, S: int, W: int) -> ScanPlan:
+    """How ``csrc/rglru.cu`` cuts a [B,S,W] scan, from the shape alone.
+
+    Each block takes one batch row and 16 channels; its producer warps
+    compute a chunk's gates while its walker runs the chunk before, so
+    work overlaps only from the second chunk on.  Short sequences take
+    chunks of 14 steps (one a producer lane: at launch.serve's 32-token
+    prefill three chunks, 10.48 us against 12.10 for one chunk of 56),
+    long ones chunks of 56 (four a lane: at 2304 tokens 104.92 us, against
+    108.67, 114.92 and 124.66 for 112, 28 and 14; measured with
+    tools/profile_torch_scan.py --sweep on an H100 80GB HBM3, 700 W).
+    ``B`` and ``W`` set only the grid."""
+    chunk = 2 * PRODUCERS * (1 if S < LONG else 4)
+    return ScanPlan(chunk, -(-S // chunk))
+
+
+def chunk_bounds(plan: ScanPlan, S: int) -> list:
+    """[(t0, t1)] of each chunk, in the order the walker takes them."""
+    return [(k * plan.chunk, min(S, (k + 1) * plan.chunk))
+            for k in range(plan.n_chunks)]
 
 
 def _launcher():
@@ -33,18 +67,20 @@ def _launcher():
     if _entry is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         _entry = build.entry("rglru_launch",
-                             [i, p, p, p, p, p, p, p, i, i, i,
+                             [i, p, p, p, p, p, p, p, i, i, i, i,
                               ctypes.c_float, p])
     return _entry
 
 
-def rglru(x, a_param, gate_a, gate_x, h0=None, *, c: float = 8.0):
+def rglru(x, a_param, gate_a, gate_x, h0=None, *, c: float = 8.0,
+          plan: ScanPlan | None = None):
     """x/gate_a/gate_x [B,S,W] (float32 or bfloat16 alike); a_param [W]
     float32; h0 [B,W] float32 or None -> (h_seq [B,S,W] in x's dtype,
     h_last [B,W] float32).
 
-    Launches the CUDA kernel; every tensor must lie on the current CUDA
-    device, contiguous."""
+    Launches the CUDA kernel with ``scan_plan(B, S, W)``, or ``plan``
+    (another chunk the kernel takes: how a measurement compares chunks);
+    every tensor must lie on the current CUDA device, contiguous."""
     global LAUNCHES
     if not x.is_cuda:
         raise ValueError("rglru kernel needs CUDA tensors "
@@ -67,21 +103,28 @@ def rglru(x, a_param, gate_a, gate_x, h0=None, *, c: float = 8.0):
             f"a_param {a_param.dtype}, h0 {None if h0 is None else h0.dtype}: "
             f"x and the gates one of {list(_DTYPE_CODES)}, a_param and h0 "
             "float32")
-    if min(B, S, W) < 1:
-        raise ValueError(f"B={B} S={S} W={W}: need non-empty inputs")
+    if min(B, S, W) < 1 or S * W >= 2 ** 31:
+        raise ValueError(f"B={B} S={S} W={W}: need non-empty inputs and "
+                         "S * W < 2**31")
     tensors = [t for t in (x, a_param, gate_a, gate_x, h0) if t is not None]
     if (any(t.device != x.device for t in tensors)
             or x.device.index != torch.cuda.current_device()):
         raise ValueError("rglru inputs must lie on the current CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("rglru inputs must be contiguous")
+    plan = scan_plan(B, S, W) if plan is None else ScanPlan(*plan)
+    lane_steps = plan.chunk // (2 * PRODUCERS)
+    if (lane_steps not in LANE_STEPS or plan.chunk != 2 * PRODUCERS
+            * lane_steps or plan.n_chunks != -(-S // plan.chunk)):
+        raise ValueError(f"plan {plan}: need a chunk of {2 * PRODUCERS} x "
+                         f"one of {LANE_STEPS} steps covering S={S}")
     h_seq = torch.empty_like(x)
     h_last = torch.empty((B, W), dtype=torch.float32, device=x.device)
     err = _launcher()(
         _DTYPE_CODES[x.dtype], x.data_ptr(), gate_a.data_ptr(),
         gate_x.data_ptr(), a_param.data_ptr(),
         None if h0 is None else h0.data_ptr(), h_seq.data_ptr(),
-        h_last.data_ptr(), B, S, W, float(c),
+        h_last.data_ptr(), B, S, W, lane_steps, float(c),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check("rglru", err)
     LAUNCHES += 1

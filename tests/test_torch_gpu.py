@@ -464,6 +464,53 @@ def test_rglru_kernel_matches_plain(cuda, B, S, W, dtype, h0):
     assert all(torch.equal(g, w) for g, w in zip(got, again))
 
 
+# chip_smoke.py's newer cases: a_t near 1 (a_param near +6), a large h0,
+# and sequences ending one step either side of the long prompt's chunk
+RGLRU_EDGE_CASES = [  # (B, S, W, dtype, a_mean, h0 scale)
+    (2, 2304, 2560, torch.float32, 6.0, 1.0),
+    (2, 2304, 2560, torch.bfloat16, 6.0, 1.0),
+    (2, 2304, 2560, torch.float32, 0.0, 100.0),
+    (2, 2304, 2560, torch.float32, 6.0, 100.0),
+    (2, 56 * 40 + 1, 2560, torch.float32, 6.0, 1.0),
+    (2, 56 * 40 - 1, 2560, torch.bfloat16, 6.0, 1.0),
+]
+
+
+@pytest.mark.parametrize("B,S,W,dtype,a_mean,h0_scale", RGLRU_EDGE_CASES)
+def test_rglru_kernel_slow_decay_and_chunk_edges(cuda, B, S, W, dtype, a_mean,
+                                                 h0_scale):
+    from repro_torch.kernels import rglru as rg
+
+    x, a, ga, gx, h = _rglru_inputs(cuda, B, S, W, dtype, "random", seed=5)
+    a = a_mean + 0.5 * a if a_mean else a
+    h = h0_scale * h
+    got, again = rg.rglru(x, a, ga, gx, h), rg.rglru(x, a, ga, gx, h)
+    want = ref.naive_rglru(x, a, ga, gx, h)
+    torch.cuda.synchronize()
+    tol = (dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32
+           else dict(rtol=8e-3, atol=1e-6))
+    torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+    assert all(torch.equal(g, w) for g, w in zip(got, again))
+
+
+@pytest.mark.parametrize("B,S,W", [(2, 2304, 2560), (8, 32, 2560),
+                                   (2, 33, 70)])
+def test_rglru_every_chunk_gives_the_same_bits(cuda, B, S, W):
+    """The chunk sets only how the gates are shared out: every plan the
+    kernel takes walks the same chain, so every one gives the same bits."""
+    from repro_torch.kernels import rglru as rg
+
+    x, a, ga, gx, h = _rglru_inputs(cuda, B, S, W, torch.bfloat16, "random")
+    outs = []
+    for u in rg.LANE_STEPS:
+        chunk = 2 * rg.PRODUCERS * u
+        outs.append(rg.rglru(x, a, ga, gx, h,
+                             plan=rg.ScanPlan(chunk, -(-S // chunk))))
+    for out in outs[1:]:
+        assert all(torch.equal(o, p) for o, p in zip(out, outs[0]))
+
+
 def test_rglru_autograd_gradients_equal_plain(cuda):
     x, a, ga, gx, h = _rglru_inputs(cuda, 2, 40, 96, torch.float32,
                                     "random", seed=3)
@@ -623,6 +670,53 @@ def test_slstm_kernel_matches_plain(cuda, B, S, H, hb, dtype):
            else dict(rtol=8e-3, atol=1e-5))
     torch.testing.assert_close(got.float(), want.float(), **tol)
     assert torch.equal(got, again)
+
+
+# batch groups that do not divide, one head, and hb 512 (the L2 route)
+SLSTM_ROUTE_CASES = [  # (B, S, H, hb, dtype, route)
+    (8, 128, 4, 256, torch.float32, "cluster"),
+    (8, 128, 4, 256, torch.bfloat16, "cluster"),
+    (3, 128, 4, 256, torch.bfloat16, "cluster"),
+    (5, 64, 4, 256, torch.float32, "cluster"),
+    (1, 128, 4, 256, torch.bfloat16, "cluster"),
+    (8, 64, 1, 256, torch.float32, "cluster"),
+    (2, 32, 2, 512, torch.float32, "l2"),
+]
+
+
+@pytest.mark.parametrize("B,S,H,hb,dtype,route", SLSTM_ROUTE_CASES)
+def test_slstm_kernel_route_counter(cuda, B, S, H, hb, dtype, route):
+    """Each launch counts in LAUNCHES, and a cluster-route launch in
+    CLUSTER_LAUNCHES too; the route is the plan's."""
+    from repro_torch.kernels import slstm as sl
+
+    args = _slstm_inputs(cuda, B, S, H, hb, dtype, seed=7)
+    assert sl.slstm_plan(B, H, hb).route == route
+    total, cluster = sl.LAUNCHES, sl.CLUSTER_LAUNCHES
+    got, again = sl.slstm(*args), sl.slstm(*args)
+    torch.cuda.synchronize()
+    assert sl.LAUNCHES == total + 2
+    assert sl.CLUSTER_LAUNCHES == cluster + 2 * (route == "cluster")
+    want, _ = ref.naive_slstm(*args)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=8e-3, atol=1e-5))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_routes_and_groupings_give_the_same_bits(cuda, dtype):
+    """Both routes share the sums' order and the cell arithmetic, and the
+    batch grouping changes neither: every plan gives the same bits."""
+    from repro_torch.kernels import slstm as sl
+
+    args = _slstm_inputs(cuda, 8, 64, 4, 256, dtype, seed=8)
+    base = sl.slstm_plan(8, 4, 256)
+    plans = [base._replace(rows=r) for r in (1, 2, 3, 4, 8)]
+    plans.append(sl.SLSTMPlan("l2", 0, 256, 1))
+    want = sl.slstm(*args)
+    for plan in plans:
+        assert torch.equal(sl.slstm(*args, plan=plan), want), plan
 
 
 def test_slstm_autograd_gradients_equal_plain(cuda):

@@ -12,7 +12,14 @@ tokens, remat none, AdamW) on the CUDA card, two steps to warm up, then:
   * ``torch.profiler`` over two more steps: device time per step (the sum
     of the kernels', memsets' and copies' durations; one stream, so they
     never overlap), the device's busy share of the wall, launches per
-    step, and the fifteen largest device entries.
+    step, and the fifteen largest device entries;
+  * the time inside each kernel's ``autograd.Function`` backward
+    (``SLSTMScan``, ``MLSTMScan``, ``RGLRUScan``, ``FlashAttention``; each
+    the plain version's autograd, the reference having no backward
+    kernel), per step: the host's wall time inside the calls over the
+    timed steps, and under the profiler each call's host time and the
+    device time of the work it launched (a ``record_function`` range
+    around each call).
 
 Prints the summary as JSON (and writes it to ``--out``).  Exits non-zero
 without a card.
@@ -62,6 +69,26 @@ def main(argv=None) -> int:
                                           seq_len=128, global_batch=8))
     flat, treedef = flatten(params)
 
+    # the kernels' backward passes, timed on the host and marked for the
+    # profiler: the autograd engine looks ``backward`` up on the class at
+    # every call
+    from repro_torch.kernels import flash_attention, mlstm, rglru, slstm
+    backward_s = {}
+    for fn in (slstm.SLSTMScan, mlstm.MLSTMScan, rglru.RGLRUScan,
+               flash_attention.FlashAttention):
+        name = f"{fn.__name__}.backward"
+        backward_s[name] = [0.0, 0]
+
+        def timed(ctx, *grads, _orig=fn.backward, _name=name):
+            t0 = time.perf_counter()
+            with torch.profiler.record_function(_name):
+                out = _orig(ctx, *grads)
+            backward_s[_name][0] += time.perf_counter() - t0
+            backward_s[_name][1] += 1
+            return out
+
+        fn.backward = staticmethod(timed)
+
     def step(i, phases=None):
         batch = {k: to_tensor(a, "cuda") for k, a in ds.batch(i).items()}
         t0 = time.perf_counter()
@@ -82,10 +109,15 @@ def main(argv=None) -> int:
     for i in range(2):
         step(i)
     phases = {"forward_backward": 0.0, "adamw": 0.0}
+    for v in backward_s.values():
+        v[:] = [0.0, 0]
     t0 = time.perf_counter()
     for i in range(2, 2 + args.steps):
         step(i, phases)
     wall_ms = (time.perf_counter() - t0) / args.steps * 1e3
+    backward_wall = {name: {"calls_per_step": n / args.steps,
+                            "wall_ms_per_step": t / args.steps * 1e3}
+                     for name, (t, n) in backward_s.items() if n}
 
     k = 2
     with profile(activities=[ProfilerActivity.CPU,
@@ -97,11 +129,37 @@ def main(argv=None) -> int:
 
     device = []
     for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+        # a record_function range also shows on the device timeline (a user
+        # annotation spanning its kernels): not device work of its own
+        if (str(getattr(e, "device_type", "")).endswith("CUDA")
+                and not getattr(e, "is_user_annotation", False)
+                and e.key not in backward_s):
             us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
             device.append((e.key, e.count, us))
     device.sort(key=lambda r: -r[2])
+    # inside each backward range: its host time, and the device time of the
+    # kernels that ran within its span on the device timeline (one stream:
+    # they are the kernels the range launched)
+    events = prof.events()
+    kernels = [e for e in events
+               if str(e.device_type).endswith("CUDA")
+               and not e.is_user_annotation and e.name not in backward_s]
+    for name in backward_wall:
+        host = [e for e in events
+                if e.name == name and str(e.device_type).endswith("CPU")]
+        spans = [e.time_range for e in events
+                 if e.name == name and str(e.device_type).endswith("CUDA")]
+        busy = sum(e.time_range.elapsed_us() for e in kernels
+                   if any(r.start <= e.time_range.start < r.end
+                          for r in spans))
+        backward_wall[name].update(
+            profiled_calls_per_step=len(host) / k,
+            profiled_host_ms_per_step=sum(e.cpu_time_total
+                                          for e in host) / 1e3 / k,
+            profiled_device_span_ms_per_step=sum(
+                r.elapsed_us() for r in spans) / 1e3 / k,
+            profiled_device_busy_ms_per_step=busy / 1e3 / k)
     device_ms = sum(us for _, _, us in device) / 1e3 / k
     summary = {
         "card": card,
@@ -116,6 +174,7 @@ def main(argv=None) -> int:
         "device_busy_share": device_ms / (prof_wall_ms / k),
         "device_entries_per_step": sum(c for _, c, _ in device) / k,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "backward": backward_wall,
         "top_device_entries": [
             {"name": name[:90], "per_step": c / k, "us_per_step": us / k}
             for name, c, us in device[:15]],
