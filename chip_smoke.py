@@ -10,8 +10,8 @@ Phases, each fatal on failure (no phase catches its own error):
      and prints the build time and ptxas's register report (registers,
      shared memory, spills; the two attention kernels' lines again on
      their own), and, where ``cuobjdump`` exists, the count of ``HGMMA``
-     instructions in each tensor-core flash kernel's SASS (at least one
-     each, or the phase fails);
+     instructions in the SASS of each tensor-core kernel (flash and the
+     mLSTM's two passes: at least one each, or the phase fails);
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the main path's shapes and at ragged shapes, with times (CUDA
      graphs of back-to-back calls, timed with CUDA events) beside the
@@ -47,8 +47,14 @@ Phases, each fatal on failure (no phase catches its own error):
      the train shape the L2 route gives the cluster route's bits); the
      mLSTM kernel at the train shape
      (one chunk), over four chunks, at ``tests/test_kernels.py``'s shapes
-     and chunks and a ragged head dim; both in float32 and bf16, with
-     their autograd gradients against the plain versions';
+     and chunks, a ragged head dim and the wgmma route's edges (a chunk
+     of 100, D 320), each case on the route its (dtype, head dim) picks
+     (the wgmma counter says which ran: bf16 with D % 64 == 0 on the
+     tensor cores) and its plan held against the library's; both in
+     float32 and bf16, with their autograd gradients against the plain
+     versions'.  The fingerprint kernel bit for bit at the fold's 4 MiB
+     chunk, a small leaf, a 210 MB leaf of 50 chunks and a ragged shape,
+     with one device entry a call at the timed shapes;
   4. model: the paper consumer's decode steps on the card against the
      same steps on the CPU (the plain path); over five seeds, card against
      CPU, the gradients and three AdamW train steps of the paper consumer
@@ -85,7 +91,8 @@ Phases, each fatal on failure (no phase catches its own error):
      registry (fingerprints on the card), pulled, and decoded 8 steps
      bit-equal to the source; ``launch.train --arch xlstm_350m`` (full
      width, 4 steps: 21 ``mlstm`` and 3 ``slstm`` launches a step, every
-     ``slstm`` launch on the cluster route) and
+     ``slstm`` launch on the cluster route and every ``mlstm`` launch on
+     the wgmma route) and
      ``launch.serve --arch xlstm_350m`` with its defaults, its cache after
      prefill (706,415,232 bytes of recurrent state) through the registry
      and decoded 8 steps bit-equal; and a paper-consumer
@@ -248,13 +255,17 @@ def card_phase() -> str:
     return card
 
 
-NEW_KERNELS = ("flash_wgmma_kernel", "decode_cluster_kernel")
+NEW_KERNELS = ("mlstm_wgmma_kernel", "mlstm_state_kernel",
+               "fingerprint_lanes_kernel")
+TENSOR_CORE_KERNELS = ("flash_wgmma_kernel", "mlstm_wgmma_kernel",
+                       "mlstm_state_kernel")
 
 
 def build_phase() -> None:
     """Builds the kernels; prints ptxas's report (registers, shared memory,
     spills) and, where ``cuobjdump`` exists, the count of ``HGMMA``
-    (wgmma) instructions in each tensor-core flash kernel's SASS."""
+    (wgmma) instructions in the SASS of each tensor-core kernel (flash and
+    the mLSTM's two passes)."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -282,14 +293,15 @@ def build_phase() -> None:
     for line in sass.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if "flash_wgmma_kernel" in fn:
+            if any(k in fn for k in TENSOR_CORE_KERNELS):
                 counts[fn] = 0
         elif fn in counts and "HGMMA" in line:
             counts[fn] += 1
     for fn, n in counts.items():
         print(f"[build] SASS {fn}: {n} HGMMA instructions")
-    check(counts and all(counts.values()),
-          f"the tensor-core flash kernel has no HGMMA in its SASS: {counts}")
+    check(all(any(k in fn for fn in counts) for k in TENSOR_CORE_KERNELS)
+          and all(counts.values()),
+          f"a tensor-core kernel has no HGMMA in its SASS: {counts}")
 
 
 def decode_inputs(gen, B, S, H, Hkv, D, dtype, ring: bool, window: int = 0):
@@ -318,8 +330,7 @@ def kernel_phase():
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import fingerprint as fp
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
@@ -410,40 +421,7 @@ def kernel_phase():
         library_ms=main["library_ms"], by_shape=by_shape)
 
     # -- chunk fingerprint lanes -------------------------------------------
-    main_words = None
-    for label, C, R in (("main", 1, 8192), ("ragged", 3, 77)):
-        words = torch.randint(-2 ** 31, 2 ** 31, (C, R, 128),
-                              generator=gen, device="cuda",
-                              dtype=torch.int64).to(torch.int32)
-        got = fp.fingerprint_lanes(words)
-        want = fp.fingerprint_lanes_ref(words)
-        torch.cuda.synchronize()
-        same = torch.equal(got, want)
-        print(f"[kernels] fingerprint_lanes {label} [{C},{R},128]: "
-              f"bit-identical={same}")
-        check(same, f"fingerprint {label}: kernel differs from plain version")
-        if label == "main":
-            main_words = words
-    # a real float32 leaf through the registry's path, both devices
-    leaf = torch.randn((4, 1, 2048, 4, 32), generator=gen, device="cuda")
-    on_card = ops.chunk_fingerprint(leaf, 4 * 1024 * 1024)
-    on_host = ops.chunk_fingerprint(leaf.cpu(), 4 * 1024 * 1024)
-    check(torch.equal(on_card.cpu(), on_host),
-          "chunk_fingerprint: card and host differ")
-    words = main_words
-    ms = graph_ms(lambda: fp.fingerprint_lanes(words))
-    plain_ms = graph_ms(lambda: fp.fingerprint_lanes_ref(words))
-    C, R, L = words.shape
-    b_ms, b_by = bound(words.nbytes + C * L * 4, 2 * C * R * L)
-    rows["fingerprint_lanes"] = dict(
-        name="fingerprint_lanes", route="cuda",
-        source="src/repro_torch/csrc/fingerprint.cu",
-        replaces="src/repro/kernels/fingerprint.py:87",
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)
-    print(f"[kernels] fingerprint_lanes main: {ms * 1e3:.2f} us kernel, "
-          f"{plain_ms * 1e3:.2f} us plain, bound {b_ms * 1e3:.3f} us "
-          f"({b_by})")
+    rows["fingerprint_lanes"] = fingerprint_kernel(gen)
     rows.update(codec_kernels())
     rows["flash_attention"] = flash_kernel(gen)
     rows["rglru"] = rglru_kernel(gen)
@@ -452,6 +430,75 @@ def kernel_phase():
     decode_empty_row(gen)
     print("[kernels] " + json.dumps(sorted(rows)))
     return rows
+
+
+FP_CASES = [  # (label, C, R): each [C, R, 128] words
+    ("fold", 1, 8192),          # the fold's 4 MiB KV leaf: one chunk
+    ("small-leaf", 1, 8),       # xlstm_350m's norm vectors
+    ("leaf-210MB", 50, 8192),   # 50 chunks of 4 MiB
+    ("ragged", 3, 77),
+]
+FP_TIMED = ("fold", "small-leaf", "leaf-210MB")
+
+
+def fingerprint_kernel(gen):
+    """The fingerprint kernel bit for bit against its plain version at
+    every case, and on a real float32 leaf through the registry's path on
+    both devices; at the timed shapes its time a call, its device entries
+    a call (one: the kernel, no memset and no fill) and its plan."""
+    from repro_torch.kernels import fingerprint as fp
+    from repro_torch.kernels import ops
+
+    by_shape = {}
+    for label, C, R in FP_CASES:
+        words = torch.randint(-2 ** 31, 2 ** 31, (C, R, 128),
+                              generator=gen, device="cuda",
+                              dtype=torch.int64).to(torch.int32)
+        got = fp.fingerprint_lanes(words)
+        again = fp.fingerprint_lanes(words)
+        want = fp.fingerprint_lanes_ref(words)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want) and torch.equal(again, want)
+        plan = fp.fingerprint_plan(C, R)
+        print(f"[kernels] fingerprint_lanes {label} [{C},{R},128] plan "
+              f"{tuple(plan)}: bit-identical={same}")
+        check(same, f"fingerprint {label}: kernel differs from plain version")
+        if label not in FP_TIMED:
+            continue
+        ms = graph_ms(lambda: fp.fingerprint_lanes(words))
+        entries = device_entries(lambda: fp.fingerprint_lanes(words))
+        print(f"[kernels] fingerprint_lanes {label} device entries per call: "
+              + "; ".join(f"{n[:60]} x{c:g} {us:.2f} us"
+                          for n, c, us in entries))
+        check(len(entries) == 1 and entries[0][1] == 1
+              and "fingerprint_lanes_kernel" in entries[0][0],
+              f"fingerprint {label}: want one device entry a call (the "
+              f"kernel), the profiler shows {entries}")
+        plain_ms = graph_ms(lambda: fp.fingerprint_lanes_ref(words),
+                            reps=50 if C == 1 else 5)
+        b_ms, b_by = bound(words.nbytes + C * 128 * 4, 2 * C * R * 128)
+        by_shape[label] = dict(shape=[C, R, 128], plan=list(plan),
+                               max_abs_err=0.0, ms=ms,
+                               kernel_us=entries[0][2], device_entries=1,
+                               plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=None)
+        print(f"[kernels] fingerprint_lanes {label}: {ms * 1e3:.2f} us a "
+              f"call ({entries[0][2]:.2f} us the kernel alone), "
+              f"{plain_ms * 1e3:.2f} us plain, bound {b_ms * 1e3:.3f} us "
+              f"({b_by})")
+    # a real float32 leaf through the registry's path, both devices
+    leaf = torch.randn((4, 1, 2048, 4, 32), generator=gen, device="cuda")
+    on_card = ops.chunk_fingerprint(leaf, 4 * 1024 * 1024)
+    on_host = ops.chunk_fingerprint(leaf.cpu(), 4 * 1024 * 1024)
+    check(torch.equal(on_card.cpu(), on_host),
+          "chunk_fingerprint: card and host differ")
+    main = by_shape["fold"]
+    return dict(name="fingerprint_lanes", route="cuda",
+                source="src/repro_torch/csrc/fingerprint.cu",
+                replaces="src/repro/kernels/fingerprint.py:87",
+                max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=None, by_shape=by_shape)
 
 
 FLASH_CASES = [  # (label, B, Sq, Sk, H, Hkv, D, dtype, causal, window)
@@ -756,10 +803,16 @@ MLSTM_CASES = [  # (label, B, S, H, D, chunk, dtype)
       for B, S, H, D in [(1, 64, 2, 32), (2, 128, 4, 64)]
       for ch in (32, 64) for dt in (torch.float32, torch.bfloat16)],
     ("ragged", 2, 12, 3, 40, 4, torch.float32),  # D not a multiple of 32
+    # the wgmma route's edges: a chunk of 100 over two row tiles, D 320
+    # (column slices of 2 + 2 + 1 boxes, the state pass's of 3 + 2)
+    ("wg-chunk100", 2, 200, 2, 64, 100, torch.bfloat16),
+    ("wg-d320", 2, 128, 3, 320, 64, torch.bfloat16),
 ]
 # max |kernel - plain| over max |plain|: float32 sums over D and over the
 # chunk in another order, divided by a denominator that cancels (h reaches
 # ~70 with |v| ~ 1); bf16 output rounding, under one ulp of the largest
+# (on the wgmma route also S, C and w o V as bf16 hi + lo: about 4e-6,
+# tests/test_torch_mlstm_plan.py)
 MLSTM_REL = {torch.float32: 5e-5, torch.bfloat16: 8e-3}
 TIMED_XL = ("xl-train", "xl-4chunks")
 
@@ -880,10 +933,13 @@ def mlstm_ops(B, S, H, D, T) -> int:
 
 
 def mlstm_kernel(gen):
-    """The mLSTM kernel against its plain version
-    (``ref.chunkwise_mlstm``) at every case, two launches bit-equal, the
-    autograd gradients equal to the plain version's; times at the train
-    shape and over four chunks."""
+    """The mLSTM kernels against their plain version
+    (``ref.chunkwise_mlstm``) at every case, each on the route its (dtype,
+    D) picks (bf16 with D % 64 == 0 on the wgmma route, counted in
+    ``WGMMA_LAUNCHES``), two launches bit-equal, the autograd gradients
+    equal to the plain version's on both routes; times at the train shape
+    and over four chunks, with the wgmma route's plan held against the
+    one the library computes."""
     from repro_torch.kernels import mlstm as ml
     from repro_torch.kernels import ref
 
@@ -893,25 +949,49 @@ def mlstm_kernel(gen):
                    .to(dtype) for _ in range(3))
         ig = torch.randn((B, S, H), generator=gen, device="cuda")
         fg = torch.randn((B, S, H), generator=gen, device="cuda") + 3.0
+        route = ml.route(dtype, D)
+        before = ml.WGMMA_LAUNCHES
         err = _two_launches(
             lambda: ml.mlstm(q, k, v, ig, fg, chunk=ch),
             lambda: ref.chunkwise_mlstm(q, k, v, ig, fg, chunk=ch), label,
             "mlstm", rel=MLSTM_REL[dtype])
+        on_wgmma = ml.WGMMA_LAUNCHES - before
+        check(on_wgmma == (2 if route == "wgmma" else 0)
+              and (route == "wgmma") == (dtype == torch.bfloat16
+                                         and D % 64 == 0),
+              f"mlstm {label}: {on_wgmma} of 2 launches on the wgmma "
+              f"route, route {route}")
+        rel = err / ref.chunkwise_mlstm(q, k, v, ig, fg, chunk=ch).float(
+        ).abs().max().item()
         print(f"[kernels] mlstm {label} [{B},{S},{H},{D}] chunk {ch} "
-              f"{str(dtype)[6:]}: max_abs_err={err:.3e}")
+              f"{str(dtype)[6:]} route={route}: max_abs_err={err:.3e} "
+              f"(of the largest |h|: {rel:.3e}, limit {MLSTM_REL[dtype]})")
+        if route == "wgmma":
+            plan = ml.mlstm_plan(B, S, H, D, min(ch, S))
+            check(ml.native_plan(B, S, H, D, min(ch, S)) == plan,
+                  f"mlstm {label}: the library's plan differs from "
+                  f"mlstm_plan {plan}")
         if label not in TIMED_XL:
             continue
         ms = graph_ms(lambda: ml.mlstm(q, k, v, ig, fg, chunk=ch))
+        entries = device_entries(lambda: ml.mlstm(q, k, v, ig, fg, chunk=ch))
+        print(f"[kernels] mlstm {label} device entries per call: " + "; ".join(
+            f"{n[:60]} x{c:g} {us:.2f} us" for n, c, us in entries))
         plain_ms = graph_ms(
             lambda: ref.chunkwise_mlstm(q, k, v, ig, fg, chunk=ch))
         nbytes = 4 * q.nbytes + ig.nbytes + fg.nbytes
         ops = mlstm_ops(B, S, H, D, ch)
-        b_ms, b_by = bound(nbytes, ops)
-        print(f"[kernels] mlstm {label}: {ms * 1e3:.2f} us kernel, "
+        b_ms, b_by = bound(nbytes, ops, PEAK_BF16_OPS_S if route == "wgmma"
+                           else PEAK_F32_OPS_S)
+        print(f"[kernels] mlstm {label}: {ms * 1e3:.2f} us a call (route "
+              f"{route}, plan {tuple(ml.mlstm_plan(B, S, H, D, ch))}), "
               f"{plain_ms * 1e3:.2f} us plain, bound {b_ms * 1e3:.3f} us "
               f"({b_by}, {nbytes} bytes, {ops} operations)")
-        by_shape[label] = dict(shape=[B, S, H, D], chunk=ch, max_abs_err=err,
-                               ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        by_shape[label] = dict(shape=[B, S, H, D], chunk=ch, route=route,
+                               max_abs_err=err, ms=ms,
+                               kernel_us=sum(us for _, _, us in entries),
+                               device_entries=sum(c for _, c, _ in entries),
+                               plain_ms=plain_ms, bound_ms=b_ms,
                                bound_by=b_by, library_ms=None)
         if row is None:
             row = dict(name="mlstm", route="cuda",
@@ -919,14 +999,17 @@ def mlstm_kernel(gen):
                        replaces="src/repro/kernels/mlstm.py:100",
                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    q, k, v = (torch.randn((2, 48, 2, 40), generator=gen, device="cuda")
-               for _ in range(3))
-    ig = torch.randn((2, 48, 2), generator=gen, device="cuda")
-    fg = torch.randn((2, 48, 2), generator=gen, device="cuda") + 3.0
-    _grads_equal("mlstm", lambda *a: ml.MLSTMScan.apply(*a, 16),
-                 lambda *a: ref.chunkwise_mlstm(*a, chunk=16),
-                 [q, k, v, ig, fg],
-                 torch.randn((2, 48, 2, 40), generator=gen, device="cuda"))
+    for shape, ch, dtype in (((2, 48, 2, 40), 16, torch.float32),
+                             ((2, 128, 2, 64), 64, torch.bfloat16)):
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        ig = torch.randn(shape[:3], generator=gen, device="cuda")
+        fg = torch.randn(shape[:3], generator=gen, device="cuda") + 3.0
+        _grads_equal(f"mlstm {ml.route(dtype, shape[3])} route",
+                     lambda *a, ch=ch: ml.MLSTMScan.apply(*a, ch),
+                     lambda *a, ch=ch: ref.chunkwise_mlstm(*a, chunk=ch),
+                     [q, k, v, ig, fg],
+                     torch.randn(shape, generator=gen, device="cuda"))
     row["by_shape"] = by_shape
     return row
 
@@ -1408,6 +1491,7 @@ def reset_counts() -> None:
     for mod in mods.values():
         mod.LAUNCHES = 0
     mods["flash_attention"].WGMMA_LAUNCHES = 0
+    mods["mlstm"].WGMMA_LAUNCHES = 0
     mods["slstm"].CLUSTER_LAUNCHES = 0
     for name in ck.LAUNCHES:
         ck.LAUNCHES[name] = 0
@@ -1990,6 +2074,14 @@ def xl_paths(paths) -> None:
     plan = sl.slstm_plan(8, cfg.num_heads, cfg.d_model // cfg.num_heads)
     print(f"[path] train-xl: {sl.CLUSTER_LAUNCHES} of {launches['slstm']} "
           f"slstm launches on the cluster route (plan {tuple(plan)})")
+    from repro_torch.kernels import mlstm as ml
+    check(ml.WGMMA_LAUNCHES == launches["mlstm"],
+          f"train-xl: {ml.WGMMA_LAUNCHES} of {launches['mlstm']} mlstm "
+          "launches on the wgmma route, want every one")
+    ml_plan = ml.mlstm_plan(8, 128, cfg.num_heads,
+                            2 * cfg.d_model // cfg.num_heads, 128)
+    print(f"[path] train-xl: {ml.WGMMA_LAUNCHES} of {launches['mlstm']} "
+          f"mlstm launches on the wgmma route (plan {tuple(ml_plan)})")
     loss = float(text.split("[train] done; final loss")[1].split()[0])
     check(math.isfinite(loss), f"train-xl: final loss {loss}")
     check((launches["mlstm"], launches["slstm"])

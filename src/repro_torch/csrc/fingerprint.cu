@@ -11,54 +11,198 @@
 // What bounds it: bytes.  The kernel reads each word once and does two
 // integer operations on it.  A 4 MiB KV leaf of the paper consumer (one
 // registry chunk, [1, 8192, 128] words) takes about 1.25 us at the H100
-// data sheet's 3.35 TB/s.
+// data sheet's 3.35 TB/s; a small leaf (xlstm_350m's norm vectors, [1, 8,
+// 128]) is all launch.
 //
-// What the design does about it: the TPU kernel streams a chunk's rows
-// through one core as a sequential grid axis.  Here a chunk's rows are cut
-// into runs of kRowsPerBlock rows, one block each, so a single chunk
-// already spreads over 32 SMs.  Each warp reads one 512-byte row per step
-// (16 bytes a thread, neighbouring threads on neighbouring addresses); a
-// row's weight is computed in registers, never loaded.  The block sums its
-// warps in shared memory and adds its 128 lane sums to the output with
-// atomicAdd, which is exact for uint32.
+// What the design does about it: one launch, no memset before it, and no
+// global atomics or second pass after it.  The TPU kernel streams a
+// chunk's rows through one core as a sequential grid axis.  Here a CTA
+// owns a slice of a chunk's lanes over a run of its rows, and the slices
+// and runs of every chunk are CTAs of their own, chosen on the host
+// (kernels/fingerprint.py:fingerprint_plan) from the shape: wide slices
+// (256 bytes of each row) where there are chunks enough to fill the
+// card, narrow ones (32 bytes, one memory sector of each row) where one
+// chunk must spread over every SM (the 4 MiB chunk: 16 slices x 16 runs
+// of 512 rows, 256 CTAs), whole rows where the work is too small to fill
+// it.  `pieces` threads read a row's slice, 16 bytes each,
+// with kUnroll independent loads in flight a thread; a row's weight is
+// computed in registers, never loaded.  A slice's partial lanes are summed
+// by warp shuffles, then the warps in shared memory; the runs of a slice
+// form one thread-block cluster (up to 16 CTAs), whose CTAs push their
+// lanes into the first CTA's shared memory with st.async, counted on its
+// mbarrier (no cluster barrier after the loads); the first CTA adds them
+// in rank order and writes the slice's lanes.  A single run is a plain
+// launch with no cluster.  Each output lane is written
+// once, by one thread.
+//
+// Why: the first port (a memset, then 32 blocks of 256 rows adding their
+// lanes to the chunk's 128 words with atomicAdd) took 7.00 us a call at
+// one 4 MiB chunk, 0.80 of it the memset; 256 blocks with atomicAdd took
+// 7.66, 256 blocks that only stored their partials 2.13; a last-arriving
+// block combining 16 to 256 partials through a ticket took 5.4 to 7.4
+// (the fence, the ticket and the partials' loads are round trips to L2 in
+// series after the last block's loads).  tools/csrc/fingerprint_costs.cu
+// and tools/profile_torch_mlstm_fp.py, H100 80GB HBM3 at 700 W.
 
 #include "fingerprint.cuh"
+#include "hopper.cuh"  // smem_u32 and the mbarrier helpers
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps; a warp covers the 128 lanes of a row
-constexpr int kRowSteps = kThreads / 32;
-constexpr int kRowsPerBlock = 256;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;       // rows in flight a thread
+constexpr int kRowQuads = kLanes / 4;  // 16-byte pieces of a row
+constexpr int kMaxCluster = 16;  // runs of a slice (above 8: non-portable)
 
-// words [C, R, 128] as uint4 [C, R, 32]; out [C, 128], zeroed.
+__device__ __forceinline__ void add4(uint4& acc, const uint4 x) {
+  acc.x += x.x;
+  acc.y += x.y;
+  acc.z += x.z;
+  acc.w += x.w;
+}
+
+// words [C, R, 128] as uint4 [C, R, 32]; out [C, 128] as uint4 [C, 32].
+// Grid (runs, 32 / pieces, C) in clusters of (runs, 1, 1): CTA (k, s, c)
+// sums 16-byte pieces s * pieces .. + pieces - 1 of chunk c's rows
+// [k * rows_per_cta, + rows_per_cta) below R; thread t reads piece
+// s * pieces + t % pieces of rows r0 + t / pieces + (256 / pieces)(u + 4 it).
 __global__ void __launch_bounds__(kThreads)
 fingerprint_lanes_kernel(const uint4* __restrict__ words,
-                         uint32_t* __restrict__ out, int R) {
-  const int c = blockIdx.y;
-  const int quad = threadIdx.x & 31;   // lanes 4*quad .. 4*quad+3
-  const int step = threadIdx.x >> 5;   // row offset inside a step
-  const int r0 = blockIdx.x * kRowsPerBlock;
-  const int r1 = min(R, r0 + kRowsPerBlock);
-  const uint4* base = words + (size_t)c * R * (kLanes / 4);
+                         uint4* __restrict__ out, int R, int rows_per_cta,
+                         int pieces) {
+  __shared__ uint4 warp_lanes[kWarps][kRowQuads];
+  __shared__ uint4 peer_lanes[kMaxCluster][kRowQuads];  // the first CTA's
+  __shared__ __align__(8) uint64_t bar;
+  uint32_t rank, n_cta;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n_cta));
+  const int c = blockIdx.z;
+  const int piece = threadIdx.x % pieces;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rows_per_round = kThreads / pieces;
+  if (n_cta > 1) {
+    if (rank == 0 && threadIdx.x == 0) {
+      mbar_init(smem_u32(&bar), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      mbar_expect_tx(smem_u32(&bar), (n_cta - 1) * pieces * 16);
+    }
+    // the first CTA's mbarrier is ready before any peer sends to it; the
+    // wait comes after the loads
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  }
+  const int r0 = blockIdx.x * rows_per_cta;
+  const int r1 = min(R, r0 + rows_per_cta);
+  const uint4* base = words + static_cast<size_t>(c) * R * kRowQuads +
+                      blockIdx.y * pieces + piece;
   uint4 acc = make_uint4(0, 0, 0, 0);
-  for (int r = r0 + step; r < r1; r += kRowSteps)
-    add_weighted(acc, base[(size_t)r * (kLanes / 4) + quad], row_weight(r));
-  block_add_lanes<kRowSteps>(acc, out + (size_t)c * kLanes);
+  for (int r = r0 + threadIdx.x / pieces; r < r1;
+       r += rows_per_round * kUnroll) {
+    uint4 x[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int rr = r + u * rows_per_round;
+      x[u] = rr < r1 ? __ldg(base + static_cast<size_t>(rr) * kRowQuads)
+                     : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      add_weighted(acc, x[u], row_weight(r + u * rows_per_round));
+  }
+  // the warp's threads of each piece, then the warps
+  for (int o = pieces; o < 32; o <<= 1) {
+    acc.x += __shfl_xor_sync(0xffffffffu, acc.x, o);
+    acc.y += __shfl_xor_sync(0xffffffffu, acc.y, o);
+    acc.z += __shfl_xor_sync(0xffffffffu, acc.z, o);
+    acc.w += __shfl_xor_sync(0xffffffffu, acc.w, o);
+  }
+  if (lane < pieces) warp_lanes[warp][lane] = acc;
+  __syncthreads();
+  if (n_cta > 1) asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  if (threadIdx.x >= pieces) return;
+  acc = warp_lanes[0][threadIdx.x];
+  for (int w = 1; w < kWarps; ++w)
+    add4(acc, warp_lanes[w][threadIdx.x]);
+  if (rank != 0) {
+    // to the first CTA's peer_lanes[rank][piece], counted on its mbarrier
+    uint32_t dst, dst_bar;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, 0;"
+                 : "=r"(dst)
+                 : "r"(smem_u32(&peer_lanes[rank][threadIdx.x])));
+    asm volatile("mapa.shared::cluster.u32 %0, %1, 0;"
+                 : "=r"(dst_bar)
+                 : "r"(smem_u32(&bar)));
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+        "[%0], {%1, %2, %3, %4}, [%5];" ::"r"(dst),
+        "r"(acc.x), "r"(acc.y), "r"(acc.z), "r"(acc.w), "r"(dst_bar)
+        : "memory");
+    return;
+  }
+  if (n_cta > 1) {
+    uint32_t done = 0;
+    const long long start = clock64();
+    while (!done) {
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, "
+          "[%1], 0;\n selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(smem_u32(&bar))
+          : "memory");
+      if (!done && clock64() - start > 20000000000LL) __trap();
+    }
+    for (uint32_t k = 1; k < n_cta; ++k) add4(acc, peer_lanes[k][threadIdx.x]);
+  }
+  out[static_cast<size_t>(c) * kRowQuads + blockIdx.y * pieces +
+      threadIdx.x] = acc;
 }
 
 }  // namespace
 
-// words: [C, R, 128] 32-bit words, 16-byte aligned; out: [C, 128].
-// Returns the CUDA error code of the memset and launch (0 on success).
+// words: [C, R, 128] 32-bit words, 16-byte aligned; out: [C, 128].  The
+// plan: slices of `pieces` 16-byte pieces of a row (a divisor of 32), each
+// chunk's rows in `runs` CTAs of rows_per_cta rows (covering R), the runs
+// of a slice one cluster (1..16 CTAs).  Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int fingerprint_lanes_launch(const void* words, void* out, int C,
-                                        int R, void* stream) {
-  if (C < 1 || C > 65535 || R < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                        int R, int rows_per_cta, int runs,
+                                        int pieces, void* stream) {
+  if (C < 1 || C > 65535 || R < 1 || rows_per_cta < 1 || runs < 1 ||
+      runs > kMaxCluster || pieces < 1 || pieces > kRowQuads ||
+      kRowQuads % pieces != 0 ||
+      static_cast<long long>(runs) * rows_per_cta < R)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      cudaMemsetAsync(out, 0, sizeof(uint32_t) * kLanes * (size_t)C, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock, C);
-  fingerprint_lanes_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const uint4*>(words), static_cast<uint32_t*>(out), R);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid(runs, kRowQuads / pieces, C);
+  if (runs == 1) {  // no cluster: a plain launch
+    fingerprint_lanes_kernel<<<grid, kThreads, 0, st>>>(
+        static_cast<const uint4*>(words), static_cast<uint4*>(out), R,
+        rows_per_cta, pieces);
+    return static_cast<int>(cudaGetLastError());
+  }
+  static bool non_portable = false;
+  if (runs > 8 && !non_portable) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fingerprint_lanes_kernel,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    non_portable = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = runs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, fingerprint_lanes_kernel, static_cast<const uint4*>(words),
+      static_cast<uint4*>(out), R, rows_per_cta, pieces));
 }

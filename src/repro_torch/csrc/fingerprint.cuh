@@ -6,7 +6,9 @@
 //     sum_r word[r, j] * row_weight(r)   (mod 2^32)
 // with row_weight(r) = mix32((r + 1) * 0x9E3779B1) | 1, r the row index
 // inside the chunk.  Modular sums give the same bits in any order, so
-// blocks add their partial lane sums with atomicAdd.
+// blocks may combine their partial lane sums in any order: the fused codec
+// kernels add them with atomicAdd, the fingerprint kernel through a
+// thread-block cluster's shared memory.
 
 #pragma once
 

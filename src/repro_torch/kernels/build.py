@@ -18,6 +18,8 @@ import threading
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -105,3 +107,16 @@ def entry(name: str, argtypes) -> ctypes._CFuncPtr:
 def check(name: str, err: int) -> None:
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def empty_written(shape, dtype, device) -> torch.Tensor:
+    """``torch.empty`` for a buffer that a kernel writes in full before
+    anything reads it: without the fill that deterministic mode gives every
+    new tensor (NaN or the largest integer), which would be one more device
+    entry a call and a pass over the buffer's bytes for nothing."""
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        return torch.empty(shape, dtype=dtype, device=device)
+    finally:
+        torch.utils.deterministic.fill_uninitialized_memory = fill

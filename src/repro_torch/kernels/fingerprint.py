@@ -8,7 +8,8 @@ the results are bit-identical:
     registry's raw-byte chunk grid);
   * stage 1 (``fingerprint_lanes``, the kernel in
     ``csrc/fingerprint.cu``): per chunk, each lane accumulates
-    ``sum_r w[r, j] * (mix32((r + 1) * 0x9E3779B1) | 1)`` mod 2^32;
+    ``sum_r w[r, j] * (mix32((r + 1) * 0x9E3779B1) | 1)`` mod 2^32, in one
+    launch whose grid ``fingerprint_plan`` picks from the shape;
   * stage 2 (``collapse_lanes``, plain torch on the leaf's device): the
     128 lanes collapse to ``FP_WORDS`` words under four seeded weightings.
 
@@ -20,6 +21,7 @@ products split so that nothing overflows.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,6 +35,15 @@ _COLLAPSE_SEEDS = (0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D, 0x27D4EB2F)
 _MASK32 = 0xFFFFFFFF
 
 LAUNCHES = 0  # wrapper calls that launched the kernel (main-path evidence)
+SMS = 132            # streaming multiprocessors of an H100 SXM
+THREADS = 256        # a CTA's threads (csrc/fingerprint.cu: kThreads)
+UNROLL = 4           # rows in flight a thread (csrc/fingerprint.cu)
+ROW_PIECES = 32      # 16-byte pieces of a row of 128 words
+WIDEST_PIECES = (16, 8, 4, 2)  # slices the plan tries, widest first
+MAX_RUNS = 16        # runs of rows a slice: one cluster (above 8:
+                     # non-portable)
+CTAS_PER_SM = 8      # CTAs of 256 threads an SM holds
+MAX_CHUNKS = 65535   # the grid's z
 _entry = None
 
 
@@ -74,17 +85,62 @@ def fingerprint_lanes_ref(words):
     return _as_int32_bits(lanes & _MASK32)
 
 
+class FingerprintPlan(NamedTuple):
+    """The kernel's grid: each chunk's lanes cut into slices of ``pieces``
+    16-byte pieces (``ROW_PIECES // pieces`` slices), its R rows into
+    ``runs`` runs of ``rows_per_cta`` rows (the last shorter or empty);
+    one CTA a (run, slice, chunk), the runs of a slice one thread-block
+    cluster."""
+    rows_per_cta: int
+    runs: int
+    pieces: int
+
+
+def fingerprint_plan(C: int, R: int) -> FingerprintPlan:
+    """The grid for ``C`` chunks of ``R`` rows.  Slices: the widest from
+    256 bytes (16 pieces) down whose CTAs, with the most runs (up to
+    ``MAX_RUNS``, none shorter than one round of loads, ``UNROLL`` rows a
+    thread, unless the chunk is), number at least one an SM; where no
+    slicing fills the card, whole rows.  Runs: that most, where the CTAs
+    then number ``CTAS_PER_SM`` an SM or more (many chunks: more loads in
+    flight); else the fewest that still put a CTA on every SM (each
+    cluster's combine is paid once per slice, and a cluster of fewer CTAs
+    syncs sooner).  One 4 MiB chunk ([1, 8192, 128]) gets 16 slices of 32
+    bytes x 9 runs of 911 rows (144 CTAs); 50 such chunks 2 slices x 16
+    runs each (1600 CTAs); a small leaf ([1, 8, 128]) one CTA."""
+    if C < 1 or R < 1:
+        raise ValueError(f"{C} chunks of {R} rows")
+
+    def most_runs(pieces):
+        return min(MAX_RUNS, -(-R // (THREADS // pieces * UNROLL)))
+
+    for pieces in WIDEST_PIECES:
+        runs = most_runs(pieces)
+        if C * (ROW_PIECES // pieces) * runs >= SMS:
+            ctas = C * (ROW_PIECES // pieces)
+            if ctas * runs < CTAS_PER_SM * SMS:
+                runs = -(-SMS // ctas)
+            break
+    else:
+        pieces = ROW_PIECES
+        runs = most_runs(pieces)
+    return FingerprintPlan(-(-R // runs), runs, pieces)
+
+
 def _launcher():
     global _entry
     if _entry is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        _entry = build.entry("fingerprint_lanes_launch", [p, p, i, i, p])
+        _entry = build.entry("fingerprint_lanes_launch",
+                             [p, p, i, i, i, i, i, p])
     return _entry
 
 
-def fingerprint_lanes(words):
+def fingerprint_lanes(words, *, plan: FingerprintPlan = None):
     """Stage 1 on the CUDA kernel: ``[C, R, 128]`` int32 words on the
-    current CUDA device -> ``[C, 128]`` int32 (uint32 bits)."""
+    current CUDA device -> ``[C, 128]`` int32 (uint32 bits).  One launch
+    and no memset; ``plan`` (default ``fingerprint_plan(C, R)``) sets the
+    grid, and every plan gives the same bits."""
     global LAUNCHES
     if not words.is_cuda:
         raise ValueError("fingerprint_lanes kernel needs a CUDA tensor "
@@ -97,12 +153,15 @@ def fingerprint_lanes(words):
         raise ValueError("fingerprint_lanes input must lie on the current "
                          "CUDA device")
     C, R, _ = words.shape
-    if not 1 <= C <= 65535 or R < 1:
-        raise ValueError(f"{C} chunks of {R} rows: need 1..65535 chunks")
+    if not 1 <= C <= MAX_CHUNKS or R < 1:
+        raise ValueError(f"{C} chunks of {R} rows: need 1..{MAX_CHUNKS} "
+                         "chunks")
+    plan = plan or fingerprint_plan(C, R)
     if words.data_ptr() % 16:
         words = words.clone()  # the kernel reads 16 bytes a thread
-    out = torch.empty((C, LANES), dtype=torch.int32, device=words.device)
+    out = build.empty_written((C, LANES), torch.int32, words.device)
     err = _launcher()(words.data_ptr(), out.data_ptr(), C, R,
+                      plan.rows_per_cta, plan.runs, plan.pieces,
                       torch.cuda.current_stream(words.device).cuda_stream)
     build.check("fingerprint_lanes", err)
     LAUNCHES += 1

@@ -84,6 +84,80 @@ def test_fingerprint_kernel_unaligned_view(cuda):
                        fp.fingerprint_lanes_ref(words))
 
 
+# the fold's 4 MiB chunk, a small leaf (xlstm_350m's norm vectors), a
+# 210 MB leaf of 50 chunks, a chunk past 256 runs, and ragged runs
+FP_SHAPES = [(1, 8192), (1, 8), (50, 8192), (1, 20000), (7, 33)]
+
+
+@pytest.mark.parametrize("C,R", FP_SHAPES)
+def test_fingerprint_kernel_one_launch_shapes(cuda, C, R):
+    gen = torch.Generator(device=cuda).manual_seed(C + R)
+    words = torch.randint(-2 ** 31, 2 ** 31, (C, R, 128), generator=gen,
+                          device=cuda, dtype=torch.int64).to(torch.int32)
+    before = fp.LAUNCHES
+    got = fp.fingerprint_lanes(words)
+    again = fp.fingerprint_lanes(words)
+    assert fp.LAUNCHES == before + 2
+    want = fp.fingerprint_lanes_ref(words)
+    assert torch.equal(got, want) and torch.equal(again, want)
+
+
+def test_fingerprint_every_plan_gives_the_same_bits(cuda):
+    """Any cut of the lanes into slices and of the rows into runs (clusters
+    of 1 to 16 CTAs) gives the same lanes (sums mod 2^32), eager or
+    replayed in a CUDA graph."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    words = torch.randint(-2 ** 31, 2 ** 31, (3, 8192, 128), generator=gen,
+                          device=cuda, dtype=torch.int64).to(torch.int32)
+    want = fp.fingerprint_lanes_ref(words)
+    plans = [fp.FingerprintPlan(-(-8192 // runs), runs, pieces)
+             for runs in (1, 2, 3, 8, 12, 16) for pieces in (1, 2, 4, 32)]
+    # runs longer than needed: the last ones empty
+    plans += [fp.FingerprintPlan(1000, 16, 2), fp.FingerprintPlan(8192, 2, 8)]
+    for plan in plans:
+        for _ in range(3):
+            assert torch.equal(fp.fingerprint_lanes(words, plan=plan), want)
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fp.fingerprint_lanes(words)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(g):
+        outs = [fp.fingerprint_lanes(words) for _ in range(4)]
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, want) for o in outs)
+
+
+def test_fingerprint_kernel_one_device_entry_a_call(cuda):
+    """One kernel a call: no memset of the output before it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    words = torch.zeros((1, 8192, 128), dtype=torch.int32, device=cuda)
+    fp.fingerprint_lanes(words)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fp.fingerprint_lanes(words)
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")}
+    assert sum(counts.values()) == 5, counts
+    assert all("fingerprint_lanes_kernel" in k for k in counts), counts
+
+
+def test_fingerprint_kernel_rejects_a_plan_that_misses_rows(cuda):
+    words = torch.zeros((1, 100, 128), dtype=torch.int32, device=cuda)
+    for plan in (fp.FingerprintPlan(32, 3, 32),  # rows 96..99 missed
+                 fp.FingerprintPlan(4, 32, 32),  # a cluster above 16
+                 fp.FingerprintPlan(100, 1, 3)):  # slices do not divide
+        with pytest.raises(RuntimeError, match="fingerprint_lanes"):
+            fp.fingerprint_lanes(words, plan=plan)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int32, torch.bool])
 def test_chunk_fingerprint_card_equals_host(cuda, dtype):
@@ -759,6 +833,14 @@ MLSTM_CASES = [  # (B, S, H, D, chunk, dtype)
     *[(B, S, H, D, ch, dt) for B, S, H, D in [(1, 64, 2, 32), (2, 128, 4, 64)]
       for ch in (32, 64) for dt in (torch.float32, torch.bfloat16)],
     (2, 12, 3, 40, 4, torch.float32),       # D not a multiple of 32
+    # the wgmma route's edges: a chunk not a multiple of 16 over two row
+    # tiles, a chunk of 4, D 320 (column slices of 3 + 2 and 2 + 2 + 1
+    # boxes) and D 192
+    (2, 200, 2, 64, 100, torch.bfloat16),
+    (1, 16, 2, 64, 4, torch.bfloat16),
+    (2, 128, 3, 320, 64, torch.bfloat16),
+    (1, 128, 3, 320, 128, torch.bfloat16),
+    (1, 256, 2, 192, 128, torch.bfloat16),
 ]
 
 
@@ -776,11 +858,14 @@ def test_mlstm_kernel_matches_plain(cuda, B, S, H, D, chunk, dtype):
     from repro_torch.kernels import mlstm as ml
 
     args = _mlstm_inputs(cuda, B, S, H, D, dtype)
-    before = ml.LAUNCHES
+    before, wgmma = ml.LAUNCHES, ml.WGMMA_LAUNCHES
     got = ml.mlstm(*args, chunk=chunk)
     again = ml.mlstm(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert ml.LAUNCHES == before + 2
+    on_wgmma = dtype == torch.bfloat16 and D % 64 == 0
+    assert ml.route(dtype, D) == ("wgmma" if on_wgmma else "float32")
+    assert ml.WGMMA_LAUNCHES == wgmma + (2 if on_wgmma else 0)
     want = ref.chunkwise_mlstm(*args, chunk=chunk)
     assert got.dtype == dtype
     # relative to the largest |h|: float32 sums in another order over a
@@ -789,6 +874,34 @@ def test_mlstm_kernel_matches_plain(cuda, B, S, H, D, chunk, dtype):
     err = (got.float() - want.float()).abs().max()
     assert err <= rel * want.float().abs().max()
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("B,S,H,D,T", [(8, 128, 4, 512, 128),
+                                        (2, 512, 4, 512, 128),
+                                        (2, 200, 2, 64, 100),
+                                        (2, 128, 3, 320, 64),
+                                        (1, 16, 2, 64, 4)])
+def test_mlstm_native_plan_equals_python_plan(cuda, B, S, H, D, T):
+    from repro_torch.kernels import mlstm as ml
+
+    assert ml.native_plan(B, S, H, D, T) == ml.mlstm_plan(B, S, H, D, T)
+
+
+def test_mlstm_wgmma_autograd_gradients_equal_plain(cuda):
+    """The wgmma route's backward is the plain version's, bit for bit."""
+    from repro_torch.kernels import mlstm as ml
+
+    args = _mlstm_inputs(cuda, 2, 128, 2, 64, torch.bfloat16, seed=5)
+    w = torch.randn(args[0].shape, generator=torch.Generator(
+        device=cuda).manual_seed(6), device=cuda)
+    grads = []
+    for fn in (lambda *a: ml.MLSTMScan.apply(*a, 64),
+               lambda *a: ref.chunkwise_mlstm(*a, chunk=64)):
+        leaves_ = [t.clone().requires_grad_() for t in args]
+        (fn(*leaves_).float() * w).sum().backward()
+        grads.append([t.grad for t in leaves_])
+    for g, p in zip(*grads):
+        assert torch.equal(g, p)
 
 
 def test_mlstm_autograd_gradients_equal_plain(cuda):
