@@ -8,10 +8,10 @@ Phases, each fatal on failure (no phase catches its own error):
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: compiles the port's CUDA kernels from ``src/repro_torch/csrc``
      and prints the build time and ptxas's register report (registers,
-     shared memory, spills; the two attention kernels' lines again on
-     their own), and, where ``cuobjdump`` exists, the count of ``HGMMA``
-     instructions in the SASS of each tensor-core kernel (flash and the
-     mLSTM's two passes: at least one each, or the phase fails);
+     shared memory, spills; the codec and fingerprint kernels' lines
+     again on their own), and, where ``cuobjdump`` exists, the count of
+     ``HGMMA`` instructions in the SASS of each tensor-core kernel (flash
+     and the mLSTM's two passes: at least one each, or the phase fails);
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the main path's shapes and at ragged shapes, with times (CUDA
      graphs of back-to-back calls, timed with CUDA events) beside the
@@ -19,9 +19,13 @@ Phases, each fatal on failure (no phase catches its own error):
      one computes the same function.  The fused codec kernels are held
      bit for bit at the fold's shape (a real float32 KV leaf against its
      parent), the serving engine's slot-aligned chunk grid, the trainer
-     pre-copy's 64 KiB grid (a real trainer leaf), a ragged odd-row shape
-     and the quantizer's edge values, and their ``FusedLeafEncoding``
-     blobs against the host codecs'; the decode kernel also at
+     pre-copy's 64 KiB grid (every float32 leaf of a real trainer's state),
+     a ragged odd-row shape and the quantizer's edge values, two launches
+     equal, and their ``FusedLeafEncoding`` blobs against the host
+     codecs'; at the fold, the serving grid and every trainer leaf shape
+     each is timed (a call, and alone: the profiler's device entries a
+     call, one on the one-launch route) beside its bound and plan; the
+     decode kernel also at
      ``launch.serve``'s shape and on a row with no valid slot.
      The flash-attention kernel is held to its plain version at the
      training and prefill shapes of the paths, at the sweep of
@@ -255,8 +259,7 @@ def card_phase() -> str:
     return card
 
 
-NEW_KERNELS = ("mlstm_wgmma_kernel", "mlstm_state_kernel",
-               "fingerprint_lanes_kernel")
+NEW_KERNELS = ("xor_fp_kernel", "int8_fp_kernel", "fingerprint_lanes_kernel")
 TENSOR_CORE_KERNELS = ("flash_wgmma_kernel", "mlstm_wgmma_kernel",
                        "mlstm_state_kernel")
 
@@ -1054,8 +1057,10 @@ def codec_inputs():
     decoded tokens: a dirty stripe), the serving engine's leaf on its
     slot-aligned chunk grid, the paper-consumer trainer's embedding table
     against its parent two AdamW steps earlier on the trainer pre-copy's
-    64 KiB grid (words [C, 128, 128]), a ragged odd-row shape and the
-    edge values."""
+    64 KiB grid (words [C, 128, 128]), then every float32 leaf of that
+    trainer's params and AdamW moments the same way (labels
+    ``trainer-leaf-k``; no chunk bytes: their blobs are not re-encoded),
+    a ragged odd-row shape and the edge values."""
     from repro_torch import configs
     from repro_torch.broker.broker import Message
     from repro_torch.checkpoint.codecs import leaf_raw
@@ -1066,6 +1071,7 @@ def codec_inputs():
     from repro_torch.models import transformer as T
     from repro_torch.serving import ServingEngine, slot_aligned_chunk_bytes
     from repro_torch.serving.handoff import ServingWorker
+    from repro_torch.tree import leaves
 
     cfg = configs.get_config("paper_consumer")
     params = T.init_lm(cfg, seed=0, device="cuda")
@@ -1094,17 +1100,27 @@ def codec_inputs():
     trainer = trainer_factory("cuda")()
     for i in range(6):
         if i == 4:
-            t_parent = trainer.state_tree()["params"]["embed"]["table"]
+            t_parent = trainer.state_tree()
         trainer.process(Message(i, {"batch_id": i}, 0.0))
-    t_leaf = trainer.params["embed"]["table"].clone()
+    t_state = trainer.state_tree()
+    t_leaves = [(cur, par) for cur, par in zip(
+        leaves({"params": t_state["params"], "opt": t_state["opt"]}),
+        leaves({"params": t_parent["params"], "opt": t_parent["opt"]}))
+        if cur.dtype == torch.float32]
+    print(f"[kernels] trainer state: {len(t_leaves)} float32 leaves")
+    t_leaf = t_state["params"]["embed"]["table"]
+    t_par = t_parent["params"]["embed"]["table"]
 
     out = []
     for label, leaf, par, cb in (("fold", fold_leaf, parent, CHUNK_BYTES),
                                  ("serving", s_leaf, s_parent, s_chunk),
-                                 ("trainer", t_leaf, t_parent, 64 * 1024)):
+                                 ("trainer", t_leaf, t_par, 64 * 1024)):
         praw = leaf_raw(par)
         cw, pw = ops._codec_words(leaf, praw, cb)
         out.append((label, cw, pw, cb, leaf, praw))
+    for k, (leaf, par) in enumerate(t_leaves):
+        cw, pw = ops._codec_words(leaf, leaf_raw(par), 64 * 1024)
+        out.append((f"trainer-leaf-{k}", cw, pw, None, None, None))
     gen = torch.Generator(device="cuda").manual_seed(2)
     cur = torch.randn((3, 77, 128), generator=gen, device="cuda")
     par = cur.clone()
@@ -1126,9 +1142,27 @@ def _same_bits(a, b) -> bool:
     return a.dtype == b.dtype and torch.equal(a, b)
 
 
+def codec_work(name: str, C: int, R: int):
+    """(bytes, operations) a codec call must do at words [C, R, 128]: each
+    input read once and each output written once (q as int8); per word a
+    multiply and an add for the fingerprint, then the XOR, or subtract,
+    abs, max, divide, round and two clamps."""
+    words = C * R * 128
+    lane_bytes = C * 128 * 4
+    if name == "xor_fp_lanes":
+        return 3 * words * 4 + lane_bytes, 3 * words
+    qwords = C * -(-R // 2) * 256
+    return 2 * words * 4 + qwords + (qwords // 256) * 4 + lane_bytes, \
+        9 * qwords
+
+
 def codec_kernels():
     """The fused fingerprint+XOR and fingerprint+int8 kernels, bit for bit
-    against their plain versions, and the codec blobs of a CUDA leaf."""
+    against their plain versions (two launches equal) at every input of
+    ``codec_inputs``, and the codec blobs of a CUDA leaf; at the fold, the
+    serving grid and one leaf of every trainer leaf shape, a call's time,
+    its device entries (one, the kernel, on the one-launch route) and the
+    kernel's time alone, the plain version's time and the bound."""
     import numpy as np
 
     from repro_torch.checkpoint.codecs import (FusedLeafEncoding, get_codec,
@@ -1136,11 +1170,11 @@ def codec_kernels():
     from repro_torch.kernels import codec as ck
 
     inputs = codec_inputs()
-    kernels = (("xor_fp_lanes", ck.xor_fp_lanes, ck.xor_fp_ref),
-               ("int8_fp_lanes", ck.int8_fp_lanes, ck.int8_fp_ref))
-    rows = {}
+    kernels = (("xor_fp_lanes", "xor", ck.xor_fp_lanes, ck.xor_fp_ref),
+               ("int8_fp_lanes", "int8", ck.int8_fp_lanes, ck.int8_fp_ref))
+    timed = {}
     for label, cw, pw, cb, leaf, praw in inputs:
-        for name, fn, plain in kernels:
+        for name, _, fn, plain in kernels:
             got, again, want = fn(cw, pw), fn(cw, pw), plain(cw, pw)
             torch.cuda.synchronize()
             same = all(_same_bits(g, w) for g, w in zip(got, want))
@@ -1149,6 +1183,11 @@ def codec_kernels():
             check(same, f"{name} {label}: kernel differs from plain version")
             check(all(_same_bits(g, a) for g, a in zip(got, again)),
                   f"{name} {label}: two launches differ")
+        shape = tuple(cw.shape)
+        if label in ("fold", "serving"):
+            timed[shape] = (label, cw, pw)
+        elif label.startswith("trainer-leaf") and shape not in timed:
+            timed[shape] = (f"trainer {list(shape)}", cw, pw)
         if leaf is None:
             continue
         dt = np.dtype(np.float32)
@@ -1162,40 +1201,51 @@ def codec_kernels():
             print(f"[kernels] FusedLeafEncoding {codec} {label}: {n} chunks, "
                   f"card blobs == host codec blobs: {same}")
             check(same, f"FusedLeafEncoding {codec} {label}: blobs differ")
-        if label in ("serving", "trainer"):
-            for name, fn, plain in kernels:
-                print(f"[kernels] {name} {label}: "
-                      f"{graph_ms(lambda: fn(cw, pw)) * 1e3:.2f} us kernel, "
-                      f"{graph_ms(lambda: plain(cw, pw)) * 1e3:.2f} us plain")
-        if label != "fold":
-            continue
-        C, R, L = cw.shape
-        words = C * R * L
-        lane_bytes = C * L * 4
-        # each input read once and each output written once (q as int8);
-        # per word: a multiply and an add for the fingerprint, then the
-        # XOR, or subtract, abs, max, divide, round and two clamps
-        work = {
-            "xor_fp_lanes": (3 * words * 4 + lane_bytes, 3 * words),
-            "int8_fp_lanes": (2 * words * 4 + words + (words // 256) * 4
-                              + lane_bytes, 9 * words),
-        }
-        for name, fn, plain in kernels:
+    rows = {}
+    for name, kind, fn, plain in kernels:
+        by_shape = {}
+        for shape, (label, cw, pw) in timed.items():
+            C, R, _ = shape
+            plan = ck.codec_plan(C, R, kind)
             ms = graph_ms(lambda: fn(cw, pw))
-            plain_ms = graph_ms(lambda: plain(cw, pw))
-            nbytes, ops_n = work[name]
+            want = 1 if plan.route == "cluster" else 2
+            for _ in range(3):  # the profiler now and then drops an event
+                entries = device_entries(lambda: fn(cw, pw))
+                n_entries = sum(c for _, c, _ in entries)
+                if n_entries == want:
+                    break
+            alone = sum(us for _, _, us in entries)
+            print(f"[kernels] {name} {label} plan {tuple(plan)} device "
+                  "entries per call: " + "; ".join(
+                      f"{n[:60]} x{c:g} {us:.2f} us" for n, c, us in entries))
+            check(any(f"{kind}_fp_kernel" in n for n, _, _ in entries)
+                  and n_entries == want
+                  and (want == 1 or any("fingerprint_lanes_kernel" in n
+                                        for n, _, _ in entries)),
+                  f"{name} {label}: want one device entry a call on the "
+                  "cluster route, the kernel (the split route: and the "
+                  f"fingerprint kernel); got {entries}")
+            plain_ms = graph_ms(lambda: plain(cw, pw),
+                                reps=50 if C * R <= 8192 else 5)
+            nbytes, ops_n = codec_work(name, C, R)
             b_ms, b_by = bound(nbytes, ops_n)
-            rows[name] = dict(
-                name=name, route="cuda",
-                source="src/repro_torch/csrc/codec.cu",
-                replaces=("src/repro/kernels/codec.py:101"
-                          if name == "xor_fp_lanes"
-                          else "src/repro/kernels/codec.py:175"),
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
-            print(f"[kernels] {name} fold: {ms * 1e3:.2f} us kernel, "
+            by_shape[label] = dict(
+                shape=list(shape), plan=list(plan), max_abs_err=0.0, ms=ms,
+                kernel_us=alone, device_entries=n_entries, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            print(f"[kernels] {name} {label}: {ms * 1e3:.2f} us a call "
+                  f"({alone:.2f} us alone, {n_entries:g} device entries), "
                   f"{plain_ms * 1e3:.2f} us plain, bound {b_ms * 1e3:.3f} us "
                   f"({b_by}, {nbytes} bytes)")
+        main = by_shape["fold"]
+        rows[name] = dict(
+            name=name, route="cuda", source="src/repro_torch/csrc/codec.cu",
+            replaces=("src/repro/kernels/codec.py:101"
+                      if name == "xor_fp_lanes"
+                      else "src/repro/kernels/codec.py:175"),
+            max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=None, by_shape=by_shape)
     return rows
 
 

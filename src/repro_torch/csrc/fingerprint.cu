@@ -45,22 +45,10 @@
 // and tools/profile_torch_mlstm_fp.py, H100 80GB HBM3 at 700 W.
 
 #include "fingerprint.cuh"
-#include "hopper.cuh"  // smem_u32 and the mbarrier helpers
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;       // rows in flight a thread
-constexpr int kRowQuads = kLanes / 4;  // 16-byte pieces of a row
-constexpr int kMaxCluster = 16;  // runs of a slice (above 8: non-portable)
-
-__device__ __forceinline__ void add4(uint4& acc, const uint4 x) {
-  acc.x += x.x;
-  acc.y += x.y;
-  acc.z += x.z;
-  acc.w += x.w;
-}
+constexpr int kUnroll = 4;  // rows in flight a thread
 
 // words [C, R, 128] as uint4 [C, R, 32]; out [C, 128] as uint4 [C, 32].
 // Grid (runs, 32 / pieces, C) in clusters of (runs, 1, 1): CTA (k, s, c)
@@ -72,26 +60,13 @@ fingerprint_lanes_kernel(const uint4* __restrict__ words,
                          uint4* __restrict__ out, int R, int rows_per_cta,
                          int pieces) {
   __shared__ uint4 warp_lanes[kWarps][kRowQuads];
-  __shared__ uint4 peer_lanes[kMaxCluster][kRowQuads];  // the first CTA's
-  __shared__ __align__(8) uint64_t bar;
-  uint32_t rank, n_cta;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n_cta));
+  __shared__ LaneInbox inbox;  // the first CTA's
+  const uint32_t rank = cluster_rank();
+  const uint32_t n_cta = cluster_ctas();
   const int c = blockIdx.z;
   const int piece = threadIdx.x % pieces;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const int rows_per_round = kThreads / pieces;
-  if (n_cta > 1) {
-    if (rank == 0 && threadIdx.x == 0) {
-      mbar_init(smem_u32(&bar), 1);
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      mbar_expect_tx(smem_u32(&bar), (n_cta - 1) * pieces * 16);
-    }
-    // the first CTA's mbarrier is ready before any peer sends to it; the
-    // wait comes after the loads
-    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-  }
+  lanes_arm(inbox, rank, n_cta, pieces);
   const int r0 = blockIdx.x * rows_per_cta;
   const int r1 = min(R, r0 + rows_per_cta);
   const uint4* base = words + static_cast<size_t>(c) * R * kRowQuads +
@@ -110,53 +85,12 @@ fingerprint_lanes_kernel(const uint4* __restrict__ words,
     for (int u = 0; u < kUnroll; ++u)
       add_weighted(acc, x[u], row_weight(r + u * rows_per_round));
   }
-  // the warp's threads of each piece, then the warps
-  for (int o = pieces; o < 32; o <<= 1) {
-    acc.x += __shfl_xor_sync(0xffffffffu, acc.x, o);
-    acc.y += __shfl_xor_sync(0xffffffffu, acc.y, o);
-    acc.z += __shfl_xor_sync(0xffffffffu, acc.z, o);
-    acc.w += __shfl_xor_sync(0xffffffffu, acc.w, o);
-  }
-  if (lane < pieces) warp_lanes[warp][lane] = acc;
-  __syncthreads();
-  if (n_cta > 1) asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-  if (threadIdx.x >= pieces) return;
-  acc = warp_lanes[0][threadIdx.x];
-  for (int w = 1; w < kWarps; ++w)
-    add4(acc, warp_lanes[w][threadIdx.x]);
-  if (rank != 0) {
-    // to the first CTA's peer_lanes[rank][piece], counted on its mbarrier
-    uint32_t dst, dst_bar;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, 0;"
-                 : "=r"(dst)
-                 : "r"(smem_u32(&peer_lanes[rank][threadIdx.x])));
-    asm volatile("mapa.shared::cluster.u32 %0, %1, 0;"
-                 : "=r"(dst_bar)
-                 : "r"(smem_u32(&bar)));
-    asm volatile(
-        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
-        "[%0], {%1, %2, %3, %4}, [%5];" ::"r"(dst),
-        "r"(acc.x), "r"(acc.y), "r"(acc.z), "r"(acc.w), "r"(dst_bar)
-        : "memory");
-    return;
-  }
-  if (n_cta > 1) {
-    uint32_t done = 0;
-    const long long start = clock64();
-    while (!done) {
-      asm volatile(
-          "{\n .reg .pred p;\n"
-          " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, "
-          "[%1], 0;\n selp.u32 %0, 1, 0, p;\n}\n"
-          : "=r"(done)
-          : "r"(smem_u32(&bar))
-          : "memory");
-      if (!done && clock64() - start > 20000000000LL) __trap();
-    }
-    for (uint32_t k = 1; k < n_cta; ++k) add4(acc, peer_lanes[k][threadIdx.x]);
-  }
-  out[static_cast<size_t>(c) * kRowQuads + blockIdx.y * pieces +
-      threadIdx.x] = acc;
+  // the warp's threads of each piece, then the warps and the cluster
+  warp_sum_pieces(acc, pieces);
+  const int lane = threadIdx.x & 31;
+  if (lane < pieces) warp_lanes[threadIdx.x >> 5][lane] = acc;
+  lanes_out(warp_lanes, inbox, rank, n_cta, pieces, 1, 1,
+            out + static_cast<size_t>(c) * kRowQuads + blockIdx.y * pieces);
 }
 
 }  // namespace
@@ -174,35 +108,8 @@ extern "C" int fingerprint_lanes_launch(const void* words, void* out, int C,
       kRowQuads % pieces != 0 ||
       static_cast<long long>(runs) * rows_per_cta < R)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(runs, kRowQuads / pieces, C);
-  if (runs == 1) {  // no cluster: a plain launch
-    fingerprint_lanes_kernel<<<grid, kThreads, 0, st>>>(
-        static_cast<const uint4*>(words), static_cast<uint4*>(out), R,
-        rows_per_cta, pieces);
-    return static_cast<int>(cudaGetLastError());
-  }
-  static bool non_portable = false;
-  if (runs > 8 && !non_portable) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fingerprint_lanes_kernel,
-        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    non_portable = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = runs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, fingerprint_lanes_kernel, static_cast<const uint4*>(words),
+  return static_cast<int>(launch_in_clusters(
+      fingerprint_lanes_kernel, dim3(runs, kRowQuads / pieces, C), runs,
+      static_cast<cudaStream_t>(stream), static_cast<const uint4*>(words),
       static_cast<uint4*>(out), R, rows_per_cta, pieces));
 }

@@ -265,6 +265,94 @@ def test_int8_fp_kernel_bit_identical(cuda, C, R):
         assert torch.equal(bits(g).cpu(), bits(c))
 
 
+# CODEC_SHAPES, a 4 MiB trainer leaf of 64 chunks, an 8-chunk trainer
+# leaf and the trainer's smallest leaf
+PLAN_SHAPES = CODEC_SHAPES + [(64, 128), (8, 128), (1, 2)]
+
+
+@pytest.mark.parametrize("C,R", PLAN_SHAPES)
+@pytest.mark.parametrize("kind", ["xor", "int8"])
+def test_codec_every_plan_gives_the_same_bits(cuda, kind, C, R):
+    """Every plan ``tools/profile_torch_codec.py --sweep`` times (both
+    routes of the int8 kernel: a chunk's runs one cluster, and q and scale
+    then the fingerprint kernel; slices, runs and chunk groups) gives the
+    plain version's bits, twice, and counts one launch a call."""
+    from repro_torch.kernels import codec as ck
+    from tools.profile_torch_codec import sweep_plans
+
+    cur, par = _codec_pair(cuda, C, R, seed=7 * C + R)
+    name = f"{kind}_fp_lanes"
+    fn = getattr(ck, name)
+    want = (ck.xor_fp_ref if kind == "xor" else ck.int8_fp_ref)(cur, par)
+    plans = sweep_plans(C, R, kind)
+    assert {p.route for p in plans} == (
+        {"cluster"} if kind == "xor" else set(ck.ROUTES))
+    for plan in plans:
+        before = ck.LAUNCHES[name]
+        got, again = fn(cur, par, plan=plan), fn(cur, par, plan=plan)
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES[name] == before + 2
+        for g, a, w in zip(got, again, want):
+            bits = (lambda t: t.view(torch.int32)) if g.is_floating_point() \
+                else (lambda t: t)
+            assert g.dtype == w.dtype and g.shape == w.shape, plan
+            assert torch.equal(bits(g), bits(w)), plan
+            assert torch.equal(bits(g), bits(a)), plan
+
+
+@pytest.mark.parametrize("C,R", [(1, 8192), (64, 128), (1024, 4), (1, 8),
+                                 (3, 77)])
+@pytest.mark.parametrize("kind", ["xor", "int8"])
+def test_codec_kernel_device_entries_a_call(cuda, kind, C, R):
+    """No memset and no fill: one device entry a call on the cluster
+    route, the kernel; the split route (the fold's int8 call) adds the
+    fingerprint kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import codec as ck
+
+    cur, par = _codec_pair(cuda, C, R, seed=C + R)
+    fn = getattr(ck, f"{kind}_fp_lanes")
+    route = ck.codec_plan(C, R, kind).route
+    fn(cur, par)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn(cur, par)
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")}
+    kernel = f"{kind}_fp_kernel"
+    assert sum(c for k, c in counts.items() if kernel in k) == 5, counts
+    others = {k: c for k, c in counts.items() if kernel not in k}
+    assert others == ({} if route == "cluster" else
+                      {k: 5 for k in others
+                       if "fingerprint_lanes_kernel" in k}), (route, counts)
+    assert route == "cluster" or len(others) == 1
+
+
+def test_codec_kernel_rejects_bad_plans(cuda):
+    from repro_torch.kernels import codec as ck
+
+    cur, par = _codec_pair(cuda, 1, 100, seed=1)
+    for plan in (ck.CodecPlan("cluster", 32, 3, 32, 1),  # rows 96..99 missed
+                 ck.CodecPlan("cluster", 4, 25, 32, 1),  # a cluster above 16
+                 ck.CodecPlan("cluster", 100, 1, 3, 1),  # slices do not divide
+                 ck.CodecPlan("cluster", 100, 1, 32, 3)):  # 3 chunks a CTA
+        with pytest.raises(RuntimeError, match="xor_fp_lanes"):
+            ck.xor_fp_lanes(cur, par, plan=plan)
+    for plan in (ck.CodecPlan("cluster", 32, 3, 32, 1),  # rows 96..99 missed
+                 ck.CodecPlan("cluster", 33, 4, 32, 1),  # odd rows a run
+                 ck.CodecPlan("cluster", 4, 25, 32, 1)):  # a cluster above 16
+        with pytest.raises(RuntimeError, match="int8_fp_lanes"):
+            ck.int8_fp_lanes(cur, par, plan=plan)
+    with pytest.raises(ValueError, match="cluster"):
+        ck.xor_fp_lanes(cur, par, plan=ck.CodecPlan("split", 4, 25, 32, 1))
+    with pytest.raises(ValueError, match="whole rows"):
+        ck.int8_fp_lanes(cur, par, plan=ck.CodecPlan("cluster", 100, 1, 8, 1))
+
+
 @pytest.mark.parametrize("codec", ["xor_rle", "int8"])
 def test_fused_leaf_encoding_card_equals_host(cuda, codec):
     import numpy as np

@@ -8,14 +8,31 @@
 //     bytes instead of atomicAdd onto the chunk's 128 words (no combine:
 //     the lanes are not the fingerprint, the time is the point);
 //   * memset: the output zeroed by cudaMemsetAsync before the launch.
-// The arithmetic is csrc/fingerprint.cuh's.
+// The arithmetic is csrc/fingerprint.cuh's; block_add_lanes is the first
+// port's combine (the fused codec kernels' first port used it too).
 
 #include "../../src/repro_torch/csrc/fingerprint.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+// Sum the partial lane sums of the block's kWarps warps (thread t of a
+// warp holds lanes 4*(t%32) .. +3) and add them to out[0..127] with
+// atomicAdd.  Every thread of the block must call it.
+__device__ __forceinline__ void block_add_lanes(uint4 acc, uint32_t* out) {
+  __shared__ uint4 part[kWarps][32];
+  const int quad = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  part[warp][quad] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    for (int s = 1; s < kWarps; ++s) add4(acc, part[s][quad]);
+    uint32_t* o = out + 4 * quad;
+    atomicAdd(o + 0, acc.x);
+    atomicAdd(o + 1, acc.y);
+    atomicAdd(o + 2, acc.z);
+    atomicAdd(o + 3, acc.w);
+  }
+}
 
 template <int U>
 __global__ void __launch_bounds__(kThreads)
@@ -54,7 +71,7 @@ fp_variant_kernel(const uint4* __restrict__ words, uint32_t* __restrict__ out,
                                     quad] = acc;
     }
   } else {
-    block_add_lanes<kWarps>(acc, out + (size_t)c * kLanes);
+    block_add_lanes(acc, out + (size_t)c * kLanes);
   }
 }
 
