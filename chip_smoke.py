@@ -38,7 +38,11 @@ Phases, each fatal on failure (no phase catches its own error):
      shows one kernel launch a call;
      both attention kernels also at recurrentgemma_2b's head_dim 256 with
      10 query heads over 1 kv head (its prefill, a 2304-token prompt past
-     the 2048 window, its decode cache and a local ring past the window).
+     the 2048 window, its decode cache and a local ring past the window),
+     and at the dense family's serving shapes: codeqwen1_5_7b (MHA, D
+     128), chatglm3_6b (32 heads over 2) and gemma3_4b (D 256, 8 heads
+     over 4; its 1024-slot ring, a 1280-slot global cache, and a
+     1152-token prefill with window 1024 and without).
      The RG-LRU kernel at ``launch.serve``'s prefill, the 2304-token
      prompt, ``tests/test_kernels.py``'s shapes, with h0, one step, a
      ragged width, a slow decay (a_t near 1), a large h0 and sequences
@@ -57,8 +61,9 @@ Phases, each fatal on failure (no phase catches its own error):
      tensor cores) and its plan held against the library's; both in
      float32 and bf16, with their autograd gradients against the plain
      versions'.  The fingerprint kernel bit for bit at the fold's 4 MiB
-     chunk, a small leaf, a 210 MB leaf of 50 chunks and a ragged shape,
-     with one device entry a call at the timed shapes;
+     chunk, a small leaf, a 210 MB leaf of 50 chunks, a ragged shape and
+     the leaves of codeqwen1_5_7b's int8 KV cache (K or V in 32 chunks,
+     scales, pos), with one device entry a call at the timed shapes;
   4. model: the paper consumer's decode steps on the card against the
      same steps on the CPU (the plain path); over five seeds, card against
      CPU, the gradients and three AdamW train steps of the paper consumer
@@ -70,10 +75,14 @@ Phases, each fatal on failure (no phase catches its own error):
      over three seeds, the logits of xlstm_350m at full width cut to one
      group (7 mLSTM + 1 sLSTM: a forward through the kernels, then a
      prefill and 4 decode steps through the recurrences, in bf16 and in
-     float32); each limit lies between the sound readings and a control's
-     (TF32 products, attention without its masks, the RG-LRU without its
-     carry, the mLSTM without its forget-gate decay), and the control
-     must fail it;
+     float32); over ``DENSE_SEEDS``, the logits of codeqwen1_5_7b and
+     chatglm3_6b at full width cut to 2 layers and of gemma3_4b cut to its
+     pattern's first 6 entries (a prefill of 8 x 32 and 4 decode steps, in
+     bf16 and in float32); each limit lies between the sound readings and
+     a control's (TF32 products, attention without its masks, the RG-LRU
+     without its carry, the mLSTM without its forget-gate decay, RoPE over
+     chatglm3's whole head, gemma3 without QK-norm), and the control must
+     fail it;
   5. path: ``repro_torch.launch.migrate.main`` with its defaults (the
      paper consumer at full width, max_seq 2048), with ``--precopy``,
      with ``--precopy --compression int8`` and with ``--workload serving
@@ -99,7 +108,15 @@ Phases, each fatal on failure (no phase catches its own error):
      the wgmma route) and
      ``launch.serve --arch xlstm_350m`` with its defaults, its cache after
      prefill (706,415,232 bytes of recurrent state) through the registry
-     and decoded 8 steps bit-equal; and a paper-consumer
+     and decoded 8 steps bit-equal; ``launch.serve --arch codeqwen1_5_7b``
+     and ``--arch chatglm3_6b`` with their defaults and ``--arch gemma3_4b
+     --requests 2 --prompt-len 1152 --max-seq 1280 --decode-steps 16``
+     (full width and depth; one flash launch per layer a prefill, one
+     decode launch per layer a step; init, prefill and decode times
+     printed), and codeqwen with an int8 KV cache from the same params:
+     its prefill's quantized K/V bit-identical to the CPU's on the same
+     inputs, the cache (272,629,760 bytes of K/V and scales) through the
+     registry and decoded 8 steps bit-equal; and a paper-consumer
      ``TrainerWorker`` at full width
      migrated through ``ms2m_statefulset`` and through ``ms2m_precopy``
      with int8 deltas (``benchmarks/delta_precopy.py``'s trainer
@@ -329,6 +346,10 @@ def decode_inputs(gen, B, S, H, Hkv, D, dtype, ring: bool, window: int = 0):
     return q, k, v, q_pos.to(torch.int32), k_pos.to(torch.int32)
 
 
+DECODE_TIMED = ("main", "smollm-serve", "rg-serve", "rg-ring", "cq-serve",
+                "glm-serve", "g3-serve", "g3-ring")
+
+
 def kernel_phase():
     import torch.nn.functional as F
 
@@ -359,19 +380,35 @@ def kernel_phase():
          DECODE_TOL),
         ("d200-g12", 3, 100, 12, 1, 200, torch.float32, True, 0,
          DECODE_TOL),
+        # the dense family's launch.serve shapes: codeqwen1_5_7b (MHA,
+        # D 128, 256 single-CTA units: two waves), chatglm3_6b (g 16) and
+        # gemma3_4b (D 256, g 2), then gemma3's 1024-slot local ring past
+        # its window and a 1280-slot global cache (the long prompt's)
+        ("cq-serve", 8, 128, 32, 32, 128, torch.bfloat16, False, 0,
+         DECODE_TOL_BF16),
+        ("glm-serve", 8, 128, 32, 2, 128, torch.bfloat16, False, 0,
+         DECODE_TOL_BF16),
+        ("g3-serve", 8, 128, 8, 4, 256, torch.bfloat16, False, 0,
+         DECODE_TOL_BF16),
+        ("g3-ring", 2, 1024, 8, 4, 256, torch.bfloat16, True, 1024,
+         DECODE_TOL_BF16),
+        ("g3-global", 2, 1280, 8, 4, 256, torch.bfloat16, False, 0,
+         DECODE_TOL_BF16),
     ]
     main_err = None
     timed = {}
     for label, B, S, H, Hkv, D, dtype, ring, window, tol in cases:
         q, k, v, qp, kp = decode_inputs(gen, B, S, H, Hkv, D, dtype, ring,
                                         window)
+        plan = da.decode_plan(B, S, Hkv, H // Hkv, D, q.element_size())
         got = da.decode_attention(q, k, v, qp, kp)
         again = da.decode_attention(q, k, v, qp, kp)
         want = ref.decode_attention(q, k, v, q_pos=qp, k_pos=kp)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         print(f"[kernels] decode_attention {label} B={B} S={S} H={H} "
-              f"Hkv={Hkv} D={D} {str(dtype)[6:]}: max_abs_err={err:.3e}")
+              f"Hkv={Hkv} D={D} {str(dtype)[6:]} plan {tuple(plan)}: "
+              f"max_abs_err={err:.3e}")
         check(bool(torch.isfinite(got).all()), f"decode {label}: non-finite")
         check(torch.allclose(got.float(), want.float(), **tol),
               f"decode {label}: kernel disagrees with the plain version "
@@ -380,7 +417,7 @@ def kernel_phase():
               f"decode {label}: two launches differ")
         if label == "main":
             main_err = err
-        if label in ("main", "smollm-serve", "rg-serve", "rg-ring"):
+        if label in DECODE_TIMED:
             timed[label] = (q, k, v, qp, kp, err, tol)
     by_shape = {}
     for label, (q, k, v, qp, kp, err, tol) in timed.items():
@@ -406,7 +443,9 @@ def kernel_phase():
         nbytes = (q.nbytes * 2 + 2 * n_valid * Hkv * D * k.element_size()
                   + qp.nbytes + kp.nbytes)
         b_ms, b_by = bound(nbytes, 4 * H * n_valid * D)
-        by_shape[label] = dict(shape=[B, S, H, Hkv, D], max_abs_err=err,
+        plan = da.decode_plan(B, S, Hkv, H // Hkv, D, q.element_size())
+        by_shape[label] = dict(shape=[B, S, H, Hkv, D], plan=list(plan),
+                               max_abs_err=err,
                                ms=ms, kernel_us=kernel_us, plain_ms=plain_ms,
                                bound_ms=b_ms, bound_by=b_by,
                                library_ms=library_ms)
@@ -440,8 +479,13 @@ FP_CASES = [  # (label, C, R): each [C, R, 128] words
     ("small-leaf", 1, 8),       # xlstm_350m's norm vectors
     ("leaf-210MB", 50, 8192),   # 50 chunks of 4 MiB
     ("ragged", 3, 77),
+    # codeqwen1_5_7b's int8 KV cache through the registry: an int8 K or V
+    # leaf (32 chunks), its bf16 scales and its pos leaf
+    ("int8-kv", 32, 8192),
+    ("int8-scales", 1, 4096),
+    ("int8-pos", 1, 256),
 ]
-FP_TIMED = ("fold", "small-leaf", "leaf-210MB")
+FP_TIMED = ("fold", "small-leaf", "leaf-210MB", "int8-kv")
 
 
 def fingerprint_kernel(gen):
@@ -530,8 +574,19 @@ FLASH_CASES = [  # (label, B, Sq, Sk, H, Hkv, D, dtype, causal, window)
     ("d256-f32-window", 2, 100, 100, 10, 1, 256, torch.float32, True, 40),
     ("d256-f32-no-valid-key", 2, 72, 40, 4, 2, 256, torch.float32, True, 16),
     ("d200-ragged", 1, 77, 77, 3, 1, 200, torch.float32, True, 0),
+    # the dense family's prefills: codeqwen1_5_7b (MHA, D 128 as two
+    # 64-column boxes), chatglm3_6b (32 heads over 2), gemma3_4b's local
+    # layers (window 1024) at launch.serve's 8 x 32 and at a 1152-token
+    # prompt where the window bites, and its global layers there
+    ("cq-prefill", 8, 32, 32, 32, 32, 128, torch.bfloat16, True, 0),
+    ("glm-prefill", 8, 32, 32, 32, 2, 128, torch.bfloat16, True, 0),
+    ("g3-prefill", 8, 32, 32, 8, 4, 256, torch.bfloat16, True, 1024),
+    ("g3-long-prefill", 2, 1152, 1152, 8, 4, 256, torch.bfloat16, True,
+     1024),
+    ("g3-long-global", 2, 1152, 1152, 8, 4, 256, torch.bfloat16, True, 0),
 ]
-FLASH_TIMED = ("smollm-train", "paper-train", "rg-prefill", "rg-long-prefill")
+FLASH_TIMED = ("smollm-train", "paper-train", "rg-prefill", "rg-long-prefill",
+               "cq-prefill", "glm-prefill", "g3-prefill", "g3-long-prefill")
 
 
 def flash_work(q, k, causal: bool, window: int):
@@ -1801,8 +1856,9 @@ def rg_model_phase() -> None:
 
 @contextlib.contextmanager
 def capturing_prefill(captured):
-    """``launch.serve``'s prefill step, wrapped so that its params, logits
-    and the cache right after it land in ``captured``."""
+    """``launch.serve``'s prefill step, wrapped so that its params, its
+    prompt batch, logits and the cache right after it land in
+    ``captured``."""
     from repro_torch.launch import serve
     from repro_torch.tree import tree_map
 
@@ -1813,7 +1869,8 @@ def capturing_prefill(captured):
 
         def prefill_step(params, cache, batch):
             logits, cache = prefill(params, cache, batch)
-            captured.update(params=params, logits=logits.clone(),
+            captured.update(params=params, batch=batch,
+                            logits=logits.clone(),
                             cache=tree_map(torch.clone, cache))
             return logits, cache
 
@@ -1874,14 +1931,16 @@ def rg_serve_paths(paths) -> None:
             captured.clear()
 
 
-def ms2m_state(label, cfg, captured, needs, image_bytes=None) -> dict:
-    """A serving cache right after a ``launch.serve`` run's prefill,
-    pushed through the port's ``Registry`` (its fingerprints taken on
-    the card) and pulled into a fresh cache; 8 greedy decode steps from
-    each must give bit-equal tokens and logits.  -> launches.  Prints the
-    image's bytes beside those of a KV cache of every layer at the same
-    batch and length (the O(1)-state case); ``image_bytes``, where given,
-    is the size the image must have."""
+def ms2m_state(label, cfg, state, needs, image_bytes=None) -> dict:
+    """A serving cache right after a prefill, pushed through the port's
+    ``Registry`` (its fingerprints taken on the card) and pulled into a
+    fresh cache; 8 greedy decode steps from each must give bit-equal
+    tokens and logits.  ``state`` is a ``launch.serve`` run's captured
+    prefill (a dict) or a function that runs one inside the path and
+    returns (params, logits, cache).  -> launches.  Prints the image's
+    bytes beside those of a KV cache of every layer at the same batch and
+    length (the O(1)-state case); ``image_bytes``, where given, is the
+    size the image must have."""
     from repro_torch.checkpoint.registry import Registry
     from repro_torch.convert import to_tensor
     from repro_torch.kernels import build
@@ -1889,13 +1948,17 @@ def ms2m_state(label, cfg, captured, needs, image_bytes=None) -> dict:
     from repro_torch.train import step as steplib
     from repro_torch.tree import flatten, tree_map, unflatten
 
-    params, logits, cache = (captured[k] for k in ("params", "logits",
-                                                   "cache"))
-    B, prompt = logits.shape[0], logits.shape[1]
     max_seq = 128  # launch.serve's default
     decode = steplib.build_decode_step(cfg)
 
+    def load():
+        if callable(state):
+            return state()
+        return state["params"], state["logits"], state["cache"]
+
     def run():
+        params, logits, cache = load()
+        B, prompt = logits.shape[0], logits.shape[1]
         build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as root:
             reg = Registry(root)
@@ -1921,9 +1984,9 @@ def ms2m_state(label, cfg, captured, needs, image_bytes=None) -> dict:
                 toks.append(tok)
                 lgs.append(lg)
             outs.append((torch.cat(toks, 1), torch.cat(lgs, 1), c))
-        return report, pulled, outs
+        return report, pulled, outs, B
 
-    launches, (report, pulled, outs), wall = run_path(label, run, needs)
+    launches, (report, pulled, outs, B), wall = run_path(label, run, needs)
     (ta, la, ca), (tb, lb, cb) = outs
     check(torch.equal(ta, tb) and torch.equal(la, lb),
           "ms2m: decoding from the pulled cache differs from the source")
@@ -2163,6 +2226,291 @@ def xl_paths(paths) -> None:
                                         ("fingerprint_lanes",), state)
 
 
+# The dense family at full width, cut in depth so that the CPU runs it
+# too: codeqwen1_5_7b and chatglm3_6b at 2 layers, gemma3_4b with its
+# pattern cut to its first 6 entries (5 local layers, window 1024, and 1
+# global).  Relative L2 error of the logits of a prefill of 8 x 32 tokens
+# and of 4 decode steps (launch.serve's shapes), card against CPU, worst
+# over DENSE_SEEDS, in bf16 compute and in float32.  Each control removes
+# what its config adds: codeqwen attention without its masks
+# (wrong_attention), chatglm3 RoPE over the whole head, gemma3 no
+# QK-norm.  The limits lie between the sound readings and the controls'
+# (PERF.md, the dense-family finding: on an H100 over seeds 0-1, worst
+# sound / least control, prefill and decode: bf16 4.5e-3 / 0.169
+# codeqwen, 4.5e-3 / 0.140 chatglm3, 1.03e-2 / 0.112 gemma3; float32
+# 1.5e-6 at worst / 0.111 at least).  Two seeds, for the script's time.
+DENSE = ("codeqwen1_5_7b", "chatglm3_6b", "gemma3_4b")
+DENSE_SEEDS = (0, 1)
+DENSE_LIMITS = {
+    "codeqwen1_5_7b": {"bfloat16": dict(prefill=5e-2, decode=5e-2),
+                       "float32": dict(prefill=2e-4, decode=2e-4)},
+    "chatglm3_6b": {"bfloat16": dict(prefill=5e-2, decode=5e-2),
+                    "float32": dict(prefill=2e-4, decode=2e-4)},
+    "gemma3_4b": {"bfloat16": dict(prefill=5e-2, decode=5e-2),
+                  "float32": dict(prefill=2e-4, decode=2e-4)},
+}
+
+
+def dense_config(arch: str, dtype: str = "bfloat16", control: bool = False):
+    """``arch`` at full width cut in depth (see ``DENSE``), computing in
+    ``dtype``; ``control`` takes chatglm3's RoPE over the whole head or
+    gemma3's QK-norm away (codeqwen's control is ``wrong_attention``)."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    cut = (dict(pattern=cfg.pattern[:6], num_layers=6)
+           if arch == "gemma3_4b" else dict(num_layers=2))
+    if control and arch == "chatglm3_6b":
+        cut["rope_fraction"] = 1.0
+    if control and arch == "gemma3_4b":
+        cut["use_qk_norm"] = False
+    return dataclasses.replace(cfg, dtype=dtype, **cut)
+
+
+def dense_run(arch: str, seed: int, params, device: str, dtype: str,
+              control: bool = False):
+    """``lm_prefill`` of 8 prompts of 32 tokens into a max_seq-128 cache,
+    then 4 teacher-forced ``lm_decode_step`` calls, from ``params`` (on
+    ``device``).  -> (prefill, decode logits), float32."""
+    import numpy as np
+
+    from repro_torch.convert import to_tensor
+    from repro_torch.models import transformer as T
+
+    cfg = dense_config(arch, dtype, control)
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (8, 36)).astype(np.int32)
+    with torch.no_grad():
+        cache = T.init_cache(cfg, 8, 128, device=device)
+        pre, cache = T.lm_prefill(
+            params, {"tokens": to_tensor(toks[:, :32], device)}, cfg, cache)
+        dec = []
+        for t in range(32, 36):
+            pos = torch.full((8, 1), t, dtype=torch.int32, device=device)
+            lg, cache = T.lm_decode_step(
+                params, to_tensor(toks[:, t:t + 1], device), pos, cfg, cache)
+            dec.append(lg)
+    return pre.float(), torch.cat(dec, 1).float()
+
+
+def dense_model_phase() -> None:
+    """Card against CPU, over ``DENSE_SEEDS`` and in each dtype of
+    ``DENSE_LIMITS``: the dense family's logits at full width cut in
+    depth.  The weights are drawn once a seed on the CPU and copied to
+    the card.  Each limit must hold for every seed and fail for the
+    config's control at every seed."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    for arch in DENSE:
+        cfg = dense_config(arch)
+        sound = {dtype: [] for dtype in DENSE_LIMITS[arch]}
+        ctl = {dtype: [] for dtype in DENSE_LIMITS[arch]}
+        for seed in DENSE_SEEDS:
+            t0 = time.perf_counter()
+            params = T.init_lm(cfg, seed=seed, device="cpu")
+            on_card = tree_map(lambda t: t.to("cuda"), params)
+            print(f"[model] {arch} seed {seed}: {cfg.num_layers} layers, "
+                  f"init {time.perf_counter() - t0:.1f} s")
+            for dtype in DENSE_LIMITS[arch]:
+                t0 = time.perf_counter()
+                host = dense_run(arch, seed, params, "cpu", dtype)
+                t_host = time.perf_counter() - t0
+                for control, out in ((False, sound), (True, ctl)):
+                    reset_counts()
+                    with (wrong_attention()
+                          if control and arch == "codeqwen1_5_7b"
+                          else contextlib.nullcontext()):
+                        got = dense_run(arch, seed, on_card, "cuda", dtype,
+                                        control)
+                    n = read_counts()
+                    want = (cfg.num_layers, 4 * cfg.num_layers)
+                    check((n["flash_attention"], n["decode_attention"])
+                          == want, f"{arch} check: launches {n}, want flash "
+                          f"and decode {want}")
+                    check(all(bool(torch.isfinite(g).all()) for g in got),
+                          f"{arch} logits on the card not finite")
+                    out[dtype].append({name: _rel_norm(g, h) for name, g, h
+                                       in zip(("prefill", "decode"), got,
+                                              host)})
+                    label = "control" if control else "card vs CPU"
+                    print(f"[model] {arch} {cfg.num_layers} layers {dtype}, "
+                          f"{label}, seed {seed}: " + " ".join(
+                              f"{k}={v:.3e}" for k, v in
+                              out[dtype][-1].items())
+                          + (f" (CPU run {t_host:.1f} s)" if not control
+                             else ""))
+            del params, on_card
+        for dtype, limits in DENSE_LIMITS[arch].items():
+            for name, limit in limits.items():
+                worst = max(r[name] for r in sound[dtype])
+                least = min(r[name] for r in ctl[dtype])
+                print(f"[model] {arch} {dtype} {name}: worst sound "
+                      f"{worst:.3e}, limit {limit:.1e}, least control "
+                      f"{least:.3e}")
+                check(worst <= limit, f"{arch} {dtype}: card disagrees with "
+                      f"the CPU ({name} {worst:.3e} > {limit:.1e})")
+                check(least > limit, f"{arch} {dtype}: the control passes "
+                      f"the {name} limit ({least:.3e} <= {limit:.1e}); the "
+                      "check cannot see it")
+
+
+@contextlib.contextmanager
+def timed_init(times):
+    """``transformer.init_lm`` wrapped so that each call's seconds (the
+    draw on the host and the copy to the card) land in ``times``."""
+    from repro_torch.models import transformer as T
+
+    plain = T.init_lm
+
+    def init_lm(*args, **kwargs):
+        t0 = time.perf_counter()
+        params = plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return params
+
+    T.init_lm = init_lm
+    try:
+        yield
+    finally:
+        T.init_lm = plain
+
+
+def dense_serve_paths(paths) -> None:
+    """``launch.serve`` at full width and full depth for the dense family:
+    codeqwen1_5_7b and chatglm3_6b with the reference's defaults (8 x 32,
+    32 decode steps, max_seq 128), gemma3_4b with a 1152-token prompt into
+    max_seq 1280 (its local layers' 1024-slot rings roll and the window
+    bites; its 4 global layers hold all 1168 positions) and 16 decode
+    steps.  Each launches ``flash_attention`` once per layer a prefill and
+    ``decode_attention`` once per layer a decode step, every flash launch
+    on the wgmma route.  Then codeqwen's int8 KV cache from the captured
+    params (``int8_ms2m``)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+
+    runs = (
+        ("serve-cq", "codeqwen1_5_7b", [], 8, 32, 32),
+        ("serve-glm", "chatglm3_6b", [], 8, 32, 32),
+        ("serve-g3-long", "gemma3_4b", ["--requests", "2", "--prompt-len",
+                                        "1152", "--max-seq", "1280",
+                                        "--decode-steps", "16"], 2, 1152, 16))
+    for label, arch, extra, B, prompt, steps in runs:
+        cfg = configs.get_config(arch)
+        captured, inits = {}, []
+        argv = ["--arch", arch] + extra
+        with (capturing_prefill(captured) if label == "serve-cq"
+              else contextlib.nullcontext()), timed_init(inits):
+            launches, (rc, text), wall = run_path(
+                label, lambda: _captured(serve.main, argv),
+                ("flash_attention", "decode_attention"), "wgmma")
+        paths[label] = launches
+        check(rc == 0, f"{label}: launch.serve exited {rc}")
+        lines = {}
+        for key, line in (
+                ("prefill", f"[serve] prefill {prompt} tokens x {B} "
+                            f"requests: "),
+                ("decode", f"[serve] decoded {steps} steps x {B} requests: "),
+                ("sample", "[serve] sample continuation (request 0): ")):
+            check(line in text, f"{label}: no line {line!r}")
+            lines[key] = text.split(line)[1].split("ms")[0]
+        want = dict(flash_attention=cfg.num_layers,
+                    decode_attention=steps * cfg.num_layers)
+        check(all(launches[k] == want.get(k, 0) for k in launches),
+              f"{label}: launches {launches}, want {want} (one prefill, "
+              f"{steps} decode steps)")
+        check(len(inits) == 1, f"{label}: {len(inits)} init_lm calls")
+        print(f"[path] {label}: rc={rc} {cfg.param_count()} params; per "
+              f"prefill flash_attention={cfg.num_layers}, per decode step "
+              f"decode_attention={cfg.num_layers}; init {inits[0]:.3f} s, "
+              f"prefill {lines['prefill']} ms, wall per decode step "
+              f"{float(lines['decode']) / steps:.3f} ms, path wall "
+              f"{wall:.3f} s")
+        if label == "serve-cq":
+            paths["serve-cq-int8-ms2m"] = int8_ms2m(cfg, captured)
+        captured.clear()
+        torch.cuda.empty_cache()
+
+
+def int8_ms2m(cfg, captured) -> dict:
+    """codeqwen1_5_7b with ``kv_cache_dtype="int8"`` from ``serve-cq``'s
+    params (no second init): a prefill of its prompts (8 x 32) into an
+    int8 cache, whose K/V quantizations must equal the CPU's bit for bit
+    on the same inputs, then the cache through the registry and 8 decode
+    steps from the pulled copy bit-equal to the source's (``ms2m_state``).
+    The image holds 272,629,760 bytes of K/V and scales (the bf16 cache
+    536,870,912), pos leaves aside.  -> launches."""
+    import dataclasses
+
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as T
+    from repro_torch.train import step as steplib
+
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    params, batch = captured["params"], captured["batch"]
+    B, prompt = batch["tokens"].shape
+    bf16_kv = sum(c[n].nbytes for c in captured["cache"].values()
+                  for n in ("k", "v"))
+    quantized, prefilled = [], {}
+    plain = attention._quantize_kv
+
+    def recording(x):
+        q, scale = plain(x)
+        quantized.append((x.clone(), q, scale))
+        return q, scale
+
+    def prefill():
+        cache = T.init_cache(cfg8, B, 128, device="cuda")
+        attention._quantize_kv = recording
+        try:
+            logits, cache = steplib.build_prefill_step(cfg8)(params, cache,
+                                                             batch)
+        finally:
+            attention._quantize_kv = plain
+        prefilled["cache"] = cache
+        return params, logits, cache
+
+    kv8 = 2 * cfg.num_layers * B * 128 * cfg.num_kv_heads * (
+        cfg.resolved_head_dim + 2)
+    pos = cfg.num_layers * B * 128 * 4
+    launches = ms2m_state("serve-cq-int8-ms2m", cfg8, prefill,
+                          ("flash_attention", "decode_attention",
+                           "fingerprint_lanes"), kv8 + pos)
+    cache = prefilled["cache"]  # as the prefill left it: decoding cloned it
+    check(launches["flash_attention"] == cfg.num_layers
+          and launches["decode_attention"] == 16 * cfg.num_layers,
+          f"serve-cq-int8-ms2m: launches {launches}, want one prefill and "
+          "16 decode steps (8 from the source, 8 from the pulled copy)")
+    # each layer's prefill quantized its K, then its V
+    check(len(quantized) == 2 * cfg.num_layers,
+          f"int8: {len(quantized)} quantizer calls in the prefill, want "
+          f"{2 * cfg.num_layers}")
+    same = 0
+    for g in range(cfg.num_layers):
+        for j, (q_name, s_name) in enumerate((("k", "k_scale"),
+                                              ("v", "v_scale"))):
+            x, q, scale = quantized[2 * g + j]
+            hq, hs = plain(x.cpu())
+            leaf_q = cache["b0"][q_name][g, :, :prompt].cpu()
+            leaf_s = cache["b0"][s_name][g, :, :prompt].cpu()
+            same += (torch.equal(q.cpu(), hq) and torch.equal(scale.cpu(), hs)
+                     and torch.equal(leaf_q, hq) and torch.equal(leaf_s, hs))
+    check(same == 2 * cfg.num_layers,
+          f"int8: {2 * cfg.num_layers - same} of {2 * cfg.num_layers} "
+          "quantized K/V leaves differ between card and CPU")
+    check(kv8 == 272_629_760 and bf16_kv == 536_870_912,
+          f"int8: K/V and scales {kv8} bytes, bf16 cache {bf16_kv}")
+    print(f"[path] serve-cq-int8-ms2m: k, v, k_scale and v_scale of all "
+          f"{cfg.num_layers} layers bit-identical card and CPU from the "
+          f"same prefill inputs; image {kv8 + pos} bytes ({kv8} of K/V and "
+          f"scales, {pos} of pos) against {bf16_kv} of K/V in serve-cq's "
+          f"bf16 cache ({kv8 / bf16_kv:.4f}x)")
+    return launches
+
+
 def trainer_migration_paths(paths) -> None:
     """A paper-consumer ``TrainerWorker`` at full width migrated through
     ``ms2m_statefulset`` and through ``ms2m_precopy`` with int8 deltas,
@@ -2216,28 +2564,32 @@ def main() -> int:
     sys.path.insert(0, os.path.join(here, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] {fn.__name__} took {time.perf_counter() - t0:.1f} s")
+        return out
+
     card_phase()
-    build_phase()
-    rows = kernel_phase()
-    model_phase()
-    train_model_phase()
-    rg_model_phase()
-    xl_model_phase()
+    timed(build_phase)
+    rows = timed(kernel_phase)
+    for phase in (model_phase, train_model_phase, rg_model_phase,
+                  xl_model_phase, dense_model_phase):
+        timed(phase)
     fold = ("decode_attention", "fingerprint_lanes")
-    paths = {
-        "default": path_phase([], "default", fold),
-        "precopy": path_phase(["--precopy"], "precopy", fold),
-        "precopy-int8": path_phase(["--precopy", "--compression", "int8"],
-                                   "precopy-int8", fold + CODEC),
-        "serving-int8": path_phase(
-            ["--workload", "serving", "--rate", SERVING_RATE, "--precopy",
-             "--compression", "int8"], "serving-int8",
-            ("decode_attention", "xor_fp_lanes", "int8_fp_lanes")),
-    }
-    train_paths(paths)
-    rg_serve_paths(paths)
-    xl_paths(paths)
-    trainer_migration_paths(paths)
+    paths = {}
+    for argv, label, needs in (
+            ([], "default", fold),
+            (["--precopy"], "precopy", fold),
+            (["--precopy", "--compression", "int8"], "precopy-int8",
+             fold + CODEC),
+            (["--workload", "serving", "--rate", SERVING_RATE, "--precopy",
+              "--compression", "int8"], "serving-int8",
+             ("decode_attention", "xor_fp_lanes", "int8_fp_lanes"))):
+        paths[label] = path_phase(argv, label, needs)
+    for phase in (train_paths, rg_serve_paths, xl_paths, dense_serve_paths,
+                  trainer_migration_paths):
+        timed(phase, paths)
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in paths.values())
         row["launches_by_path"] = {label: p[name]

@@ -3,9 +3,12 @@
 Same interface as ``repro.configs``.  Ported: ``paper_consumer`` (the
 paper's evaluation microservice, the model the migration path runs),
 ``smollm_360m`` (the training and serving CLIs' default),
-``recurrentgemma_2b`` (the RG-LRU + local-attention hybrid, served) and
-``xlstm_350m`` (mLSTM + sLSTM blocks, trained and served); every other
-architecture name raises until its model family is ported.
+``codeqwen1_5_7b``, ``gemma3_4b`` and ``chatglm3_6b`` (the dense family:
+MHA, 5:1 local:global with QK-norm and a logits softcap, and partial
+RoPE over 2 kv heads; served), ``recurrentgemma_2b`` (the RG-LRU +
+local-attention hybrid, served) and ``xlstm_350m`` (mLSTM + sLSTM blocks,
+trained and served); every other architecture name raises until its model
+family is ported.
 """
 from __future__ import annotations
 
@@ -27,8 +30,8 @@ ARCHS: List[str] = [
     "xlstm_350m",
     "paper_consumer",  # the paper's own evaluation microservice model
 ]
-PORTED = ("paper_consumer", "smollm_360m", "recurrentgemma_2b",
-          "xlstm_350m")
+PORTED = ("paper_consumer", "smollm_360m", "codeqwen1_5_7b", "gemma3_4b",
+          "chatglm3_6b", "recurrentgemma_2b", "xlstm_350m")
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 

@@ -3,9 +3,9 @@
 Port of ``repro.models.attention``: full-sequence self-attention
 (``attn_forward``, train and prefill, through ``ops.attention``), prompt
 prefill into the cache (``prefill_into_cache``) and the decode paths
-(``attn_decode``, ``attn_append``) with a float KV cache.  The
-reference's sharding constraints have no counterpart here; the int8 KV
-cache and cross-attention (``kv_x``) are not ported yet.
+(``attn_decode``, ``attn_append``) with a float or an int8 KV cache.
+The reference's sharding constraints have no counterpart here;
+cross-attention (``kv_x``) is not ported yet.
 
 The reference returns a new cache from every call (JAX arrays are
 immutable).  Here the prefill, decode and append paths write the new
@@ -88,20 +88,58 @@ def attn_forward(params, x, positions, cfg, *, local: bool = False,
 def init_kv_cache(cfg, batch: int, seq: int, *, local: bool = False,
                   dtype=None, device="cuda"):
     """Cache for one attention layer.  Local layers keep a ring buffer of
-    ``window`` slots; global layers keep the full horizon."""
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet to repro_torch")
+    ``window`` slots; global layers keep the full horizon.
+
+    ``cfg.kv_cache_dtype == "int8"`` stores blockwise-quantized K/V: int8
+    values and one bf16 scale per (slot, kv head)."""
     device = resolve_device(device)
     S = min(seq, cfg.window) if local else seq
     hd = cfg.resolved_head_dim
-    dt = dtype or getattr(torch, cfg.kv_cache_dtype or cfg.dtype)
     shape = (batch, S, cfg.num_kv_heads, hd)
-    return {
-        "pos": torch.full((batch, S), -1, dtype=torch.int32, device=device),
-        "k": torch.zeros(shape, dtype=dt, device=device),
-        "v": torch.zeros(shape, dtype=dt, device=device),
-    }
+    cache = {"pos": torch.full((batch, S), -1, dtype=torch.int32,
+                               device=device)}
+    if cfg.kv_cache_dtype == "int8":
+        dt = torch.int8
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:3], dtype=torch.bfloat16,
+                                      device=device)
+    else:
+        dt = dtype or getattr(torch, cfg.kv_cache_dtype or cfg.dtype)
+    cache["k"] = torch.zeros(shape, dtype=dt, device=device)
+    cache["v"] = torch.zeros(shape, dtype=dt, device=device)
+    return cache
+
+
+def _quantize_kv(x):
+    """x [..., hd] -> (int8 values, bf16 scale [...]): the scale is
+    max|x| / 127 (at least 1e-8), the values round half to even.
+
+    Both divisions are tensor by tensor: CUDA divides a tensor by a
+    Python scalar as a product with its reciprocal, which can round a
+    scale one ulp away from the reference's true division."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _dequantize_kv(cache, dt):
+    """The cache's K and V in ``dt`` (an int8 cache times its scales, the
+    product taken in ``dt``)."""
+    if "k_scale" not in cache:
+        return cache["k"].to(dt), cache["v"].to(dt)
+    k = cache["k"].to(dt) * cache["k_scale"].to(dt)[..., None]
+    v = cache["v"].to(dt) * cache["v_scale"].to(dt)[..., None]
+    return k, v
+
+
+def _cache_entries(cache, k, v):
+    """The leaves a K/V write stores: quantized for an int8 cache."""
+    if "k_scale" not in cache:
+        return {"k": k, "v": v}
+    (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
 
 
 def prefill_into_cache(params, x, positions, cfg, cache, *, local: bool):
@@ -112,7 +150,7 @@ def prefill_into_cache(params, x, positions, cfg, cache, *, local: bool):
     out, k, v = _attend(params, x, positions, cfg, local=local, causal=True)
     S_cache = cache["k"].shape[1]
     S = x.shape[1]
-    entries = {"k": k, "v": v, "pos": positions}
+    entries = {**_cache_entries(cache, k, v), "pos": positions}
     for name, a in entries.items():
         a = a.to(cache[name].dtype)
         if S >= S_cache:
@@ -138,12 +176,13 @@ def attn_append(params, x, positions, cfg, cache, *, local: bool):
     S_cache = cache["k"].shape[1]
     slots = positions % S_cache  # [B,k]
     b_idx = torch.arange(B, device=x.device)[:, None]
-    cache["k"][b_idx, slots] = k.to(cache["k"].dtype)
-    cache["v"][b_idx, slots] = v.to(cache["v"].dtype)
+    for name, a in _cache_entries(cache, k, v).items():
+        cache[name][b_idx, slots] = a.to(cache[name].dtype)
     cache["pos"][b_idx, slots] = positions.to(torch.int32)
+    k_all, v_all = _dequantize_kv(cache, x.dtype)
     out = _ref.chunk_attention(
-        q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), q_pos=positions,
-        k_pos=cache["pos"], window=cfg.window if local else 0)
+        q, k_all, v_all, q_pos=positions, k_pos=cache["pos"],
+        window=cfg.window if local else 0)
     out = out.reshape(B, K, -1) @ params["wo"].to(x.dtype)
     return out, cache
 
@@ -162,13 +201,13 @@ def attn_decode(params, x, positions, cfg, cache, *, local: bool):
     pos_scalar = positions[:, -1]
     slot = pos_scalar % S_cache  # ring for local layers
     b_idx = torch.arange(B, device=x.device)
-    cache["k"][b_idx, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][b_idx, slot] = v[:, 0].to(cache["v"].dtype)
+    for name, a in _cache_entries(cache, k[:, 0], v[:, 0]).items():
+        cache[name][b_idx, slot] = a.to(cache[name].dtype)
     cache["pos"][b_idx, slot] = pos_scalar.to(torch.int32)
     k_pos = cache["pos"]
     if local:
         k_pos = torch.where(pos_scalar[:, None] - k_pos < cfg.window, k_pos, -1)
-    out = ops.decode_attention(q, cache["k"].to(x.dtype),
-                               cache["v"].to(x.dtype), pos_scalar, k_pos)
+    k_all, v_all = _dequantize_kv(cache, x.dtype)
+    out = ops.decode_attention(q, k_all, v_all, pos_scalar, k_pos)
     out = out.reshape(B, 1, -1) @ params["wo"].to(x.dtype)
     return out, cache

@@ -50,7 +50,7 @@ def soft_cap(x, cap: float):
 
 
 # ---------------------------------------------------------------------------
-# rotary position embeddings (default rope)
+# rotary position embeddings (default and partial rope)
 # ---------------------------------------------------------------------------
 
 def _rope_angles(positions, dim: int, theta: float):
@@ -78,14 +78,16 @@ def apply_rope(x, positions, theta: float = 10_000.0, fraction: float = 1.0):
 
 
 def rope_for(cfg, x, positions, local: bool):
-    """Dispatch on cfg.rope_kind (``default`` and ``none`` are ported)."""
+    """Dispatch on cfg.rope_kind (``default``, ``partial`` and ``none`` are
+    ported; ``mrope`` is not)."""
     if cfg.rope_kind == "none":
         return x
-    if cfg.rope_kind != "default":
+    if cfg.rope_kind not in ("default", "partial"):
         raise NotImplementedError(
             f"rope_kind {cfg.rope_kind!r} is not ported yet to repro_torch")
     theta = cfg.rope_theta_local if local else cfg.rope_theta
-    return apply_rope(x, positions, theta)
+    frac = cfg.rope_fraction if cfg.rope_kind == "partial" else 1.0
+    return apply_rope(x, positions, theta, frac)
 
 
 # ---------------------------------------------------------------------------

@@ -101,35 +101,59 @@ def _init_block(gen, cfg, mixer: BlockKind, ffn: BlockKind):
     return blk
 
 
-def _stack(trees):
-    """Stack same-structured trees along a new leading ``layers`` axis."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _stacked_like(tree, n: int, device):
+    """Uninitialized leaves of ``tree``'s shapes with a leading axis of
+    ``n``, on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _stacked_like(v, n, device) for k, v in tree.items()}
+    return torch.empty((n,) + tuple(tree.shape), dtype=tree.dtype,
+                       device=device)
 
 
-def _init_groups(gen, cfg, n_groups: int):
-    """Stacked per-position block params: {'b0': stacked, 'b1': ...}."""
-    return {f"b{i}": _stack([_init_block(gen, cfg, mixer, ffn)
-                             for _ in range(n_groups)])
-            for i, (mixer, ffn) in enumerate(cfg.pattern)}
+def _fill_row(stacked, tree, g: int) -> None:
+    """Copy ``tree``'s leaves into row ``g`` of ``stacked``'s."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _fill_row(stacked[k], v, g)
+    else:
+        stacked[g].copy_(tree)
+
+
+def _init_groups(gen, cfg, n_groups: int, device):
+    """Stacked per-position block params: {'b0': stacked, 'b1': ...}.
+
+    Each stacked leaf is allocated once, on ``device``; each group's block
+    is drawn on the host, position by position and group by group (the
+    generator's order), and copied into its row.  So at most one block's
+    leaves exist twice, where stacking drawn blocks would hold every
+    block's twice (31 GB of host memory for codeqwen1_5_7b)."""
+    groups = {}
+    for i, (mixer, ffn) in enumerate(cfg.pattern):
+        for g in range(n_groups):
+            blk = _init_block(gen, cfg, mixer, ffn)
+            if g == 0:
+                groups[f"b{i}"] = _stacked_like(blk, n_groups, device)
+            _fill_row(groups[f"b{i}"], blk, g)
+    return groups
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda"):
-    """Random weights from a seeded ``torch.Generator``, on ``device``."""
+    """Random weights from a seeded ``torch.Generator`` (drawn on the host
+    for every device, so a seed gives the same weights on each), on
+    ``device``."""
     check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     params: Dict[str, Any] = {
-        "embed": common.init_embedding(gen, cfg),
-        "groups": _init_groups(gen, cfg, cfg.num_groups),
-        "final_norm": zeros_param((cfg.d_model,)),
+        "embed": tree_map(lambda t: t.to(dev),
+                          common.init_embedding(gen, cfg)),
+        "groups": _init_groups(gen, cfg, cfg.num_groups, dev),
+        "final_norm": zeros_param((cfg.d_model,)).to(dev),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = param(gen, (cfg.padded_vocab, cfg.d_model),
-                                  scale=0.02)
-    return tree_map(lambda t: t.to(dev), params)
+                                  scale=0.02).to(dev)
+    return params
 
 
 # ---------------------------------------------------------------------------

@@ -52,7 +52,17 @@ def _decode_inputs(dev, B, S, H, Hkv, D, dtype, ring, seed=0):
                                          (8, 128, 15, 5, 64),
                                          # recurrentgemma_2b: MQA, D 256
                                          (8, 128, 10, 1, 256),
-                                         (2, 2048, 10, 1, 256)])
+                                         (2, 2048, 10, 1, 256),
+                                         # launch.serve, the dense family:
+                                         # codeqwen (MHA, D 128), chatglm3
+                                         # (g 16), gemma3 (D 256, g 2), and
+                                         # gemma3's 1024-slot ring and
+                                         # 1280-slot global cache
+                                         (8, 128, 32, 32, 128),
+                                         (8, 128, 32, 2, 128),
+                                         (8, 128, 8, 4, 256),
+                                         (2, 1024, 8, 4, 256),
+                                         (2, 1280, 8, 4, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain(cuda, B, S, H, Hkv, D, dtype, ring):
     q, k, v, qp, kp = _decode_inputs(cuda, B, S, H, Hkv, D, dtype, ring)
@@ -468,6 +478,14 @@ FLASH_CASES = [  # (B, Sq, Sk, H, Hkv, D, causal, window)
     (2, 100, 100, 10, 1, 256, True, 40),
     (2, 72, 40, 4, 2, 256, True, 16),    # D 256, rows with no valid key
     (1, 77, 77, 3, 1, 200, True, 0),     # 128 < D < 256
+    # the dense family's prefills: codeqwen (MHA, D 128), chatglm3 (32
+    # heads over 2), gemma3's local (window 1024) and global layers at
+    # launch.serve's 8 x 32 and at a 1152-token prompt past the window
+    (8, 32, 32, 32, 32, 128, True, 0),
+    (8, 32, 32, 32, 2, 128, True, 0),
+    (8, 32, 32, 8, 4, 256, True, 1024),
+    (2, 1152, 1152, 8, 4, 256, True, 1024),
+    (2, 1152, 1152, 8, 4, 256, True, 0),
 ]
 
 
@@ -723,6 +741,46 @@ def test_serve_cli_recurrentgemma_at_full_width(cuda, capsys):
     out = capsys.readouterr().out
     assert "[serve] prefill 32 tokens x 2 requests" in out
     assert "[serve] decoded 3 steps x 2 requests" in out
+
+
+@pytest.mark.parametrize("arch", ["codeqwen1_5_7b", "gemma3_4b",
+                                  "chatglm3_6b"])
+def test_serve_cli_dense_smoke_on_card(cuda, capsys, arch):
+    """``launch.serve --arch <dense> --smoke`` on the card: one flash
+    launch per layer a prefill, one decode launch per layer a step."""
+    from repro_torch import configs
+    from repro_torch.kernels import decode_attention as da_
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+
+    layers = configs.get_smoke(arch).num_layers
+    f0, d0 = fa.LAUNCHES, da_.LAUNCHES
+    assert serve.main(["--arch", arch, "--smoke", "--requests", "3",
+                       "--decode-steps", "4"]) == 0
+    assert (fa.LAUNCHES - f0, da_.LAUNCHES - d0) == (layers, 4 * layers)
+    assert "[serve] decoded 4 steps x 3 requests" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_kv_quantizer_card_equals_cpu(cuda, dtype):
+    """The int8 KV cache's quantizer gives the same int8 values and bf16
+    scales on the card as on the CPU (its scale a true division on
+    both), and so does the dequantized product."""
+    from repro_torch.models import attention
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = (torch.randn((8, 32, 32, 128), generator=gen, device=cuda)
+         * torch.rand((8, 32, 32, 1), generator=gen, device=cuda) * 30
+         ).to(dtype)
+    x[0, 0] = 0  # all-zero rows take the 1e-8 clamp
+    q, s = attention._quantize_kv(x)
+    qc, sc = attention._quantize_kv(x.cpu())
+    assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+    cache = {"k": q, "v": q, "k_scale": s, "v_scale": s}
+    host = {"k": qc, "v": qc, "k_scale": sc, "v_scale": sc}
+    for dt in (torch.float32, torch.bfloat16):
+        k, _ = attention._dequantize_kv(cache, dt)
+        assert torch.equal(k.cpu(), attention._dequantize_kv(host, dt)[0])
 
 
 def _paper_trainer(dev):
