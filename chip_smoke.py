@@ -5,7 +5,9 @@
 
 Phases, each fatal on failure (no phase catches its own error):
 
-  1. card: name and power limit (nvidia-smi), torch and CUDA versions;
+  1. card: name and power limit (nvidia-smi), torch and CUDA versions,
+     the host's CPU count and torch's thread count (``init_lm`` draws on
+     that many host threads);
   2. build: compiles the port's CUDA kernels from ``src/repro_torch/csrc``
      and prints the build time and ptxas's register report (registers,
      shared memory, spills; the codec and fingerprint kernels' lines
@@ -42,7 +44,8 @@ Phases, each fatal on failure (no phase catches its own error):
      and at the dense family's serving shapes: codeqwen1_5_7b (MHA, D
      128), chatglm3_6b (32 heads over 2) and gemma3_4b (D 256, 8 heads
      over 4; its 1024-slot ring, a 1280-slot global cache, and a
-     1152-token prefill with window 1024 and without).
+     1152-token prefill with window 1024 and without), and
+     granite_moe_1b_a400m's (16 heads over 8, D 64).
      The RG-LRU kernel at ``launch.serve``'s prefill, the 2304-token
      prompt, ``tests/test_kernels.py``'s shapes, with h0, one step, a
      ragged width, a slow decay (a_t near 1), a large h0 and sequences
@@ -78,11 +81,16 @@ Phases, each fatal on failure (no phase catches its own error):
      float32); over ``DENSE_SEEDS``, the logits of codeqwen1_5_7b and
      chatglm3_6b at full width cut to 2 layers and of gemma3_4b cut to its
      pattern's first 6 entries (a prefill of 8 x 32 and 4 decode steps, in
-     bf16 and in float32); each limit lies between the sound readings and
+     bf16 and in float32); over ``MOE_SEEDS``, the logits of
+     granite_moe_1b_a400m at full width cut to ``MOE_LAYERS`` layers and
+     of llama4_maverick_400b_a17b's smoke config (the same prefill and
+     decode steps, in bf16 and in float32), with the expert picks that
+     differ between card and CPU per layer and the prefill's capacity
+     drops printed; each limit lies between the sound readings and
      a control's (TF32 products, attention without its masks, the RG-LRU
      without its carry, the mLSTM without its forget-gate decay, RoPE over
-     chatglm3's whole head, gemma3 without QK-norm), and the control must
-     fail it;
+     chatglm3's whole head, gemma3 without QK-norm, experts taken from the
+     lowest router probabilities), and the control must fail it;
   5. path: ``repro_torch.launch.migrate.main`` with its defaults (the
      paper consumer at full width, max_seq 2048), with ``--precopy``,
      with ``--precopy --compression int8`` and with ``--workload serving
@@ -116,7 +124,12 @@ Phases, each fatal on failure (no phase catches its own error):
      printed), and codeqwen with an int8 KV cache from the same params:
      its prefill's quantized K/V bit-identical to the CPU's on the same
      inputs, the cache (272,629,760 bytes of K/V and scales) through the
-     registry and decoded 8 steps bit-equal; and a paper-consumer
+     registry and decoded 8 steps bit-equal; ``launch.serve --arch
+     granite_moe_1b_a400m`` with its defaults at full width and depth (24
+     flash launches a prefill, 24 decode launches a step) and its cache
+     after prefill (50,429,952 bytes: K/V and pos) through the registry
+     and decoded 8 steps bit-equal; every path's ``init_lm`` seconds and
+     params a second printed; and a paper-consumer
      ``TrainerWorker`` at full width
      migrated through ``ms2m_statefulset`` and through ``ms2m_precopy``
      with int8 deltas (``benchmarks/delta_precopy.py``'s trainer
@@ -273,6 +286,9 @@ def card_phase() -> str:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)}")
+    print(f"host: {os.cpu_count()} CPUs, {len(os.sched_getaffinity(0))} "
+          f"usable; torch intra-op threads {torch.get_num_threads()} (the "
+          f"init draw's thread count)")
     return card
 
 
@@ -347,7 +363,7 @@ def decode_inputs(gen, B, S, H, Hkv, D, dtype, ring: bool, window: int = 0):
 
 
 DECODE_TIMED = ("main", "smollm-serve", "rg-serve", "rg-ring", "cq-serve",
-                "glm-serve", "g3-serve", "g3-ring")
+                "glm-serve", "g3-serve", "g3-ring", "gm-serve")
 
 
 def kernel_phase():
@@ -393,6 +409,9 @@ def kernel_phase():
         ("g3-ring", 2, 1024, 8, 4, 256, torch.bfloat16, True, 1024,
          DECODE_TOL_BF16),
         ("g3-global", 2, 1280, 8, 4, 256, torch.bfloat16, False, 0,
+         DECODE_TOL_BF16),
+        # granite_moe_1b_a400m's launch.serve shape (16 heads over 8, D 64)
+        ("gm-serve", 8, 128, 16, 8, 64, torch.bfloat16, False, 0,
          DECODE_TOL_BF16),
     ]
     main_err = None
@@ -584,9 +603,12 @@ FLASH_CASES = [  # (label, B, Sq, Sk, H, Hkv, D, dtype, causal, window)
     ("g3-long-prefill", 2, 1152, 1152, 8, 4, 256, torch.bfloat16, True,
      1024),
     ("g3-long-global", 2, 1152, 1152, 8, 4, 256, torch.bfloat16, True, 0),
+    # granite_moe_1b_a400m's launch.serve prefill (16 heads over 8, D 64)
+    ("gm-prefill", 8, 32, 32, 16, 8, 64, torch.bfloat16, True, 0),
 ]
 FLASH_TIMED = ("smollm-train", "paper-train", "rg-prefill", "rg-long-prefill",
-               "cq-prefill", "glm-prefill", "g3-prefill", "g3-long-prefill")
+               "cq-prefill", "glm-prefill", "g3-prefill", "g3-long-prefill",
+               "gm-prefill")
 
 
 def flash_work(q, k, causal: bool, window: int):
@@ -1304,6 +1326,25 @@ def codec_kernels():
     return rows
 
 
+def host_and_card(cfg, seed: int, label: str):
+    """``init_lm(seed)`` drawn on the CPU, and a copy on the card; prints
+    the seconds of both, and the draw's alone with its rate.  -> (params
+    on the CPU, params on the card)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves, tree_map
+
+    t0 = time.perf_counter()
+    params = T.init_lm(cfg, seed=seed, device="cpu")
+    draw = time.perf_counter() - t0
+    on_card = tree_map(lambda t: t.to("cuda"), params)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    print(f"[model] {label} seed {seed}: {cfg.num_layers} layers, init "
+          f"{time.perf_counter() - t0:.1f} s (draw {draw:.2f} s: {n} params, "
+          f"{n / draw / 1e6:.0f} M params/s)")
+    return params, on_card
+
+
 def model_phase() -> None:
     """Decode steps of the paper consumer: card against CPU plain path."""
     from repro_torch import configs
@@ -1801,8 +1842,6 @@ def rg_model_phase() -> None:
     Each limit must hold for every seed and fail for the control
     (``carry_dropped``) at every seed."""
     from repro_torch.models import BlockKind
-    from repro_torch.models import transformer as T
-    from repro_torch.tree import tree_map
 
     cfg = rg_config()
     n_rec = sum(m == BlockKind.RGLRU for m, _ in cfg.pattern)
@@ -1810,11 +1849,7 @@ def rg_model_phase() -> None:
     sound = {dtype: [] for dtype in RG_LIMITS}
     ctl = {dtype: [] for dtype in RG_LIMITS}
     for seed in RG_SEEDS:
-        t0 = time.perf_counter()
-        params = T.init_lm(cfg, seed=seed, device="cpu")
-        on_card = tree_map(lambda t: t.to("cuda"), params)
-        print(f"[model] recurrentgemma_2b seed {seed}: init "
-              f"{time.perf_counter() - t0:.1f} s")
+        params, on_card = host_and_card(cfg, seed, "recurrentgemma_2b")
         for dtype in RG_LIMITS:
             t0 = time.perf_counter()
             host = rg_run(seed, params, "cpu", dtype)
@@ -1905,8 +1940,9 @@ def rg_serve_paths(paths) -> None:
                                "2", "--prompt-len", "2304", "--max-seq",
                                "2560", "--decode-steps", "16"], 2, 2304, 16))
     for label, argv, B, prompt, steps in runs:
+        inits = []
         with (capturing_prefill(captured) if label == "serve-rg"
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), timed_init(inits):
             launches, (rc, text), wall = run_path(
                 label, lambda: _captured(serve.main, argv),
                 ("rglru", "flash_attention", "decode_attention"), "wgmma")
@@ -1921,9 +1957,11 @@ def rg_serve_paths(paths) -> None:
         check(all(launches[k] == (want.get(k, 0)) for k in launches),
               f"{label}: launches {launches}, want {want} (one prefill, "
               f"{steps} decode steps)")
+        (init_s, n), = inits
         print(f"[path] {label}: rc={rc} per prefill rglru={n_rec} "
               f"flash_attention={n_attn}; per decode step "
-              f"decode_attention={n_attn}")
+              f"decode_attention={n_attn}; init {init_s:.3f} s ({n} params "
+              f"drawn and copied, {n / init_s / 1e6:.0f} M params/s)")
         if label == "serve-rg":
             paths["serve-rg-ms2m"] = ms2m_state(
                 "serve-rg-ms2m", cfg, captured,
@@ -2086,8 +2124,6 @@ def xl_model_phase() -> None:
     Each limit must hold for every seed and fail for the control
     (``decay_dropped``) at every seed."""
     from repro_torch.models import BlockKind
-    from repro_torch.models import transformer as T
-    from repro_torch.tree import tree_map
 
     cfg = xl_config()
     n_m = sum(m == BlockKind.MLSTM for m, _ in cfg.pattern)
@@ -2096,11 +2132,7 @@ def xl_model_phase() -> None:
     ctl = {dtype: [] for dtype in XL_LIMITS}
     names = ("forward", "prefill", "decode")
     for seed in XL_SEEDS:
-        t0 = time.perf_counter()
-        params = T.init_lm(cfg, seed=seed, device="cpu")
-        on_card = tree_map(lambda t: t.to("cuda"), params)
-        print(f"[model] xlstm_350m seed {seed}: init "
-              f"{time.perf_counter() - t0:.1f} s")
+        params, on_card = host_and_card(cfg, seed, "xlstm_350m")
         for dtype in XL_LIMITS:
             t0 = time.perf_counter()
             host = xl_run(seed, params, "cpu", dtype)
@@ -2269,8 +2301,7 @@ def dense_config(arch: str, dtype: str = "bfloat16", control: bool = False):
     return dataclasses.replace(cfg, dtype=dtype, **cut)
 
 
-def dense_run(arch: str, seed: int, params, device: str, dtype: str,
-              control: bool = False):
+def serve_run(cfg, seed: int, params, device: str):
     """``lm_prefill`` of 8 prompts of 32 tokens into a max_seq-128 cache,
     then 4 teacher-forced ``lm_decode_step`` calls, from ``params`` (on
     ``device``).  -> (prefill, decode logits), float32."""
@@ -2279,7 +2310,6 @@ def dense_run(arch: str, seed: int, params, device: str, dtype: str,
     from repro_torch.convert import to_tensor
     from repro_torch.models import transformer as T
 
-    cfg = dense_config(arch, dtype, control)
     toks = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (8, 36)).astype(np.int32)
     with torch.no_grad():
@@ -2301,30 +2331,24 @@ def dense_model_phase() -> None:
     depth.  The weights are drawn once a seed on the CPU and copied to
     the card.  Each limit must hold for every seed and fail for the
     config's control at every seed."""
-    from repro_torch.models import transformer as T
-    from repro_torch.tree import tree_map
-
     for arch in DENSE:
         cfg = dense_config(arch)
         sound = {dtype: [] for dtype in DENSE_LIMITS[arch]}
         ctl = {dtype: [] for dtype in DENSE_LIMITS[arch]}
         for seed in DENSE_SEEDS:
-            t0 = time.perf_counter()
-            params = T.init_lm(cfg, seed=seed, device="cpu")
-            on_card = tree_map(lambda t: t.to("cuda"), params)
-            print(f"[model] {arch} seed {seed}: {cfg.num_layers} layers, "
-                  f"init {time.perf_counter() - t0:.1f} s")
+            params, on_card = host_and_card(cfg, seed, arch)
             for dtype in DENSE_LIMITS[arch]:
                 t0 = time.perf_counter()
-                host = dense_run(arch, seed, params, "cpu", dtype)
+                host = serve_run(dense_config(arch, dtype), seed, params,
+                                 "cpu")
                 t_host = time.perf_counter() - t0
                 for control, out in ((False, sound), (True, ctl)):
                     reset_counts()
                     with (wrong_attention()
                           if control and arch == "codeqwen1_5_7b"
                           else contextlib.nullcontext()):
-                        got = dense_run(arch, seed, on_card, "cuda", dtype,
-                                        control)
+                        got = serve_run(dense_config(arch, dtype, control),
+                                        seed, on_card, "cuda")
                     n = read_counts()
                     want = (cfg.num_layers, 4 * cfg.num_layers)
                     check((n["flash_attention"], n["decode_attention"])
@@ -2343,25 +2367,33 @@ def dense_model_phase() -> None:
                           + (f" (CPU run {t_host:.1f} s)" if not control
                              else ""))
             del params, on_card
-        for dtype, limits in DENSE_LIMITS[arch].items():
-            for name, limit in limits.items():
-                worst = max(r[name] for r in sound[dtype])
-                least = min(r[name] for r in ctl[dtype])
-                print(f"[model] {arch} {dtype} {name}: worst sound "
-                      f"{worst:.3e}, limit {limit:.1e}, least control "
-                      f"{least:.3e}")
-                check(worst <= limit, f"{arch} {dtype}: card disagrees with "
-                      f"the CPU ({name} {worst:.3e} > {limit:.1e})")
-                check(least > limit, f"{arch} {dtype}: the control passes "
-                      f"the {name} limit ({least:.3e} <= {limit:.1e}); the "
-                      "check cannot see it")
+        check_limits(arch, DENSE_LIMITS[arch], sound, ctl)
+
+
+def check_limits(arch: str, limits_by_dtype, sound, ctl) -> None:
+    """Each limit must hold for the worst sound reading over the seeds and
+    fail for the control's least."""
+    for dtype, limits in limits_by_dtype.items():
+        for name, limit in limits.items():
+            worst = max(r[name] for r in sound[dtype])
+            least = min(r[name] for r in ctl[dtype])
+            print(f"[model] {arch} {dtype} {name}: worst sound "
+                  f"{worst:.3e}, limit {limit:.1e}, least control "
+                  f"{least:.3e}")
+            check(worst <= limit, f"{arch} {dtype}: card disagrees with "
+                  f"the CPU ({name} {worst:.3e} > {limit:.1e})")
+            check(least > limit, f"{arch} {dtype}: the control passes "
+                  f"the {name} limit ({least:.3e} <= {limit:.1e}); the "
+                  "check cannot see it")
 
 
 @contextlib.contextmanager
 def timed_init(times):
     """``transformer.init_lm`` wrapped so that each call's seconds (the
-    draw on the host and the copy to the card) land in ``times``."""
+    draw on the host and its copies to the card) and its count of params
+    land in ``times``."""
     from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
 
     plain = T.init_lm
 
@@ -2369,7 +2401,8 @@ def timed_init(times):
         t0 = time.perf_counter()
         params = plain(*args, **kwargs)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        times.append((time.perf_counter() - t0,
+                      sum(t.numel() for t in leaves(params))))
         return params
 
     T.init_lm = init_lm
@@ -2379,19 +2412,58 @@ def timed_init(times):
         T.init_lm = plain
 
 
-def dense_serve_paths(paths) -> None:
-    """``launch.serve`` at full width and full depth for the dense family:
-    codeqwen1_5_7b and chatglm3_6b with the reference's defaults (8 x 32,
-    32 decode steps, max_seq 128), gemma3_4b with a 1152-token prompt into
-    max_seq 1280 (its local layers' 1024-slot rings roll and the window
-    bites; its 4 global layers hold all 1168 positions) and 16 decode
-    steps.  Each launches ``flash_attention`` once per layer a prefill and
-    ``decode_attention`` once per layer a decode step, every flash launch
-    on the wgmma route.  Then codeqwen's int8 KV cache from the captured
-    params (``int8_ms2m``)."""
+def serve_path(paths, label: str, arch: str, extra, B: int, prompt: int,
+               steps: int, captured=None):
+    """``launch.serve --arch <arch>`` at full width and depth, with
+    ``extra`` flags: rc 0, the reference's three lines, ``flash_attention``
+    once per layer a prefill and ``decode_attention`` once per layer a
+    decode step, every flash launch on the wgmma route, and one
+    ``init_lm`` (its seconds and rate printed).  ``captured``, where
+    given, takes the prefill (``capturing_prefill``).  -> the config."""
     from repro_torch import configs
     from repro_torch.launch import serve
 
+    cfg = configs.get_config(arch)
+    inits = []
+    argv = ["--arch", arch] + extra
+    with (capturing_prefill(captured) if captured is not None
+          else contextlib.nullcontext()), timed_init(inits):
+        launches, (rc, text), wall = run_path(
+            label, lambda: _captured(serve.main, argv),
+            ("flash_attention", "decode_attention"), "wgmma")
+    paths[label] = launches
+    check(rc == 0, f"{label}: launch.serve exited {rc}")
+    lines = {}
+    for key, line in (
+            ("prefill", f"[serve] prefill {prompt} tokens x {B} requests: "),
+            ("decode", f"[serve] decoded {steps} steps x {B} requests: "),
+            ("sample", "[serve] sample continuation (request 0): ")):
+        check(line in text, f"{label}: no line {line!r}")
+        lines[key] = text.split(line)[1].split("ms")[0]
+    want = dict(flash_attention=cfg.num_layers,
+                decode_attention=steps * cfg.num_layers)
+    check(all(launches[k] == want.get(k, 0) for k in launches),
+          f"{label}: launches {launches}, want {want} (one prefill, "
+          f"{steps} decode steps)")
+    check(len(inits) == 1, f"{label}: {len(inits)} init_lm calls")
+    (init_s, n), = inits
+    print(f"[path] {label}: rc={rc} {cfg.param_count()} params; per "
+          f"prefill flash_attention={cfg.num_layers}, per decode step "
+          f"decode_attention={cfg.num_layers}; init {init_s:.3f} s ({n} "
+          f"params drawn and copied, {n / init_s / 1e6:.0f} M params/s), "
+          f"prefill {lines['prefill']} ms, wall per decode step "
+          f"{float(lines['decode']) / steps:.3f} ms, path wall {wall:.3f} s")
+    return cfg
+
+
+def dense_serve_paths(paths) -> None:
+    """``launch.serve`` at full width and full depth for the dense family
+    (``serve_path``): codeqwen1_5_7b and chatglm3_6b with the reference's
+    defaults (8 x 32, 32 decode steps, max_seq 128), gemma3_4b with a
+    1152-token prompt into max_seq 1280 (its local layers' 1024-slot rings
+    roll and the window bites; its 4 global layers hold all 1168
+    positions) and 16 decode steps.  Then codeqwen's int8 KV cache from
+    the captured params (``int8_ms2m``)."""
     runs = (
         ("serve-cq", "codeqwen1_5_7b", [], 8, 32, 32),
         ("serve-glm", "chatglm3_6b", [], 8, 32, 32),
@@ -2399,39 +2471,12 @@ def dense_serve_paths(paths) -> None:
                                         "1152", "--max-seq", "1280",
                                         "--decode-steps", "16"], 2, 1152, 16))
     for label, arch, extra, B, prompt, steps in runs:
-        cfg = configs.get_config(arch)
-        captured, inits = {}, []
-        argv = ["--arch", arch] + extra
-        with (capturing_prefill(captured) if label == "serve-cq"
-              else contextlib.nullcontext()), timed_init(inits):
-            launches, (rc, text), wall = run_path(
-                label, lambda: _captured(serve.main, argv),
-                ("flash_attention", "decode_attention"), "wgmma")
-        paths[label] = launches
-        check(rc == 0, f"{label}: launch.serve exited {rc}")
-        lines = {}
-        for key, line in (
-                ("prefill", f"[serve] prefill {prompt} tokens x {B} "
-                            f"requests: "),
-                ("decode", f"[serve] decoded {steps} steps x {B} requests: "),
-                ("sample", "[serve] sample continuation (request 0): ")):
-            check(line in text, f"{label}: no line {line!r}")
-            lines[key] = text.split(line)[1].split("ms")[0]
-        want = dict(flash_attention=cfg.num_layers,
-                    decode_attention=steps * cfg.num_layers)
-        check(all(launches[k] == want.get(k, 0) for k in launches),
-              f"{label}: launches {launches}, want {want} (one prefill, "
-              f"{steps} decode steps)")
-        check(len(inits) == 1, f"{label}: {len(inits)} init_lm calls")
-        print(f"[path] {label}: rc={rc} {cfg.param_count()} params; per "
-              f"prefill flash_attention={cfg.num_layers}, per decode step "
-              f"decode_attention={cfg.num_layers}; init {inits[0]:.3f} s, "
-              f"prefill {lines['prefill']} ms, wall per decode step "
-              f"{float(lines['decode']) / steps:.3f} ms, path wall "
-              f"{wall:.3f} s")
+        captured = {} if label == "serve-cq" else None
+        cfg = serve_path(paths, label, arch, extra, B, prompt, steps,
+                         captured)
         if label == "serve-cq":
             paths["serve-cq-int8-ms2m"] = int8_ms2m(cfg, captured)
-        captured.clear()
+            captured.clear()
         torch.cuda.empty_cache()
 
 
@@ -2511,6 +2556,177 @@ def int8_ms2m(cfg, captured) -> dict:
     return launches
 
 
+# The MoE slice, card against CPU: granite_moe_1b_a400m at full width (32
+# experts top-8, d_model 1024, d_ff 512 an expert) cut to MOE_LAYERS of its
+# 24 layers so that the CPU runs it too, and llama4_maverick_400b_a17b's
+# smoke config as it is (a dense and an MoE layer, 4 experts top-1 with a
+# shared expert; its full size, 397.7 B params, fits no card).  Relative
+# L2 error of the logits of a prefill of 8 x 32 tokens and of 4 decode
+# steps (launch.serve's shapes), worst over MOE_SEEDS, in bf16 compute and
+# in float32, and the share of the first MoE layer's (token, k) expert
+# picks (prefill and decode) that differ between card and CPU ("picks":
+# the later layers' inputs differ through the earlier picks); the control
+# takes each token's experts from the lowest router probabilities instead
+# of the highest (moe.top_k inverted), a routing break.  The picks that
+# differ in every MoE layer and the prefill's capacity drops are printed.
+# In bf16 a router logit one rounding apart swaps a pick and the token's
+# output with it, and the swaps compound over the layers; in llama4's
+# top-1 smoke config two swapped decode picks of 32 move its decode logits
+# by 0.36.  So the bf16 logits limits have little room on either side,
+# and the first layer's picks are the firmer bf16 check (PERF.md, the MoE
+# finding: on an H100 over seeds 0-1, worst sound / least control: bf16
+# logits 0.153 / 1.413 granite and 0.362 / 1.355 llama4, picks 7.4e-3 /
+# 1.0; float32 logits 2.5e-6 / 1.355, no pick differing).
+MOE = ("granite_moe_1b_a400m", "llama4_maverick_400b_a17b")
+MOE_LAYERS = 4
+MOE_SEEDS = (0, 1)
+_MOE_BF16 = dict(prefill=8e-1, decode=8e-1, picks=3e-2)
+_MOE_F32 = dict(prefill=2e-4, decode=2e-4, picks=1e-3)
+MOE_LIMITS = {arch: {"bfloat16": _MOE_BF16, "float32": _MOE_F32}
+              for arch in MOE}
+
+
+def moe_config(arch: str, dtype: str = "bfloat16"):
+    """granite at full width cut to ``MOE_LAYERS`` layers, or llama4's smoke
+    config, computing in ``dtype``."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    if arch == "granite_moe_1b_a400m":
+        return dataclasses.replace(configs.get_config(arch), dtype=dtype,
+                                   num_layers=MOE_LAYERS)
+    return dataclasses.replace(configs.get_smoke(arch), dtype=dtype)
+
+
+@contextlib.contextmanager
+def recording_picks(picks, control: bool = False):
+    """``moe._router`` wrapped so that each call's expert picks [B,S,K] land
+    in ``picks`` (on the CPU); ``control`` takes the top-k from the lowest
+    router probabilities."""
+    from repro_torch.models import moe
+
+    plain_router, plain_top_k = moe._router, moe.top_k
+
+    def router(params, xf, cfg):
+        out = plain_router(params, xf, cfg)
+        picks.append(out[1].cpu())
+        return out
+
+    def lowest(probs, k):
+        vals, ids = torch.sort(probs, dim=-1, stable=True)
+        return vals[..., :k], ids[..., :k]
+
+    moe._router = router
+    if control:
+        moe.top_k = lowest
+    try:
+        yield
+    finally:
+        moe._router, moe.top_k = plain_router, plain_top_k
+
+
+def moe_model_phase() -> None:
+    """Card against CPU, over ``MOE_SEEDS`` and in each dtype of
+    ``MOE_LIMITS``, for each config of ``MOE`` (``moe_config``): the
+    logits of ``serve_run``, each limit holding for every seed and failing
+    for the control (``recording_picks(control=True)``) at every seed;
+    per MoE layer, the (token, k) picks that differ between card and CPU,
+    and the prefill's capacity drops."""
+    from repro_torch.models import BlockKind
+    from repro_torch.models import moe
+
+    for arch in MOE:
+        cfg = moe_config(arch)
+        n_moe = sum(f == BlockKind.MOE for _, f in cfg.pattern) * (
+            cfg.num_groups)
+        sound = {dtype: [] for dtype in MOE_LIMITS[arch]}
+        ctl = {dtype: [] for dtype in MOE_LIMITS[arch]}
+        for seed in MOE_SEEDS:
+            params, on_card = host_and_card(cfg, seed, arch)
+            for dtype in MOE_LIMITS[arch]:
+                dcfg = moe_config(arch, dtype)
+                host_picks = []
+                t0 = time.perf_counter()
+                with recording_picks(host_picks):
+                    host = serve_run(dcfg, seed, params, "cpu")
+                t_host = time.perf_counter() - t0
+                cap = moe.expert_capacity(dcfg, 32)
+                drops = [int(torch.clamp(torch.nn.functional.one_hot(
+                    ids.reshape(ids.shape[0], -1), dcfg.num_experts).sum(1)
+                    - cap, min=0).sum()) for ids in host_picks[:n_moe]]
+                for control, out in ((False, sound), (True, ctl)):
+                    picks = []
+                    reset_counts()
+                    with recording_picks(picks, control):
+                        got = serve_run(dcfg, seed, on_card, "cuda")
+                    n = read_counts()
+                    want = (cfg.num_layers, 4 * cfg.num_layers)
+                    check((n["flash_attention"], n["decode_attention"])
+                          == want, f"{arch} check: launches {n}, want flash "
+                          f"and decode {want}")
+                    check(len(picks) == len(host_picks) == 5 * n_moe,
+                          f"{arch}: {len(picks)} router calls on the card, "
+                          f"{len(host_picks)} on the CPU, want {5 * n_moe}")
+                    check(all(bool(torch.isfinite(g).all()) for g in got),
+                          f"{arch} logits on the card not finite")
+                    # (token, k) picks that differ, per MoE layer: the
+                    # prefill's, then the 4 decode steps' together
+                    differ = [int((a != b).sum())
+                              for a, b in zip(picks, host_picks)]
+                    per_layer = [
+                        (differ[i], sum(differ[i + n_moe * t]
+                                        for t in range(1, 5)))
+                        for i in range(n_moe)]
+                    first = host_picks[::n_moe]
+                    out[dtype].append(dict(
+                        {name: _rel_norm(g, h) for name, g, h
+                         in zip(("prefill", "decode"), got, host)},
+                        picks=sum(per_layer[0]) / sum(p.numel()
+                                                      for p in first)))
+                    label = "control" if control else "card vs CPU"
+                    print(f"[model] {arch} {cfg.num_layers} layers {dtype}, "
+                          f"{label}, seed {seed}: " + " ".join(
+                              f"{k}={v:.3e}" for k, v in
+                              out[dtype][-1].items())
+                          + f"; picks differing per MoE layer (prefill of "
+                          f"{host_picks[0].numel()}, decode of "
+                          f"{4 * host_picks[n_moe].numel()}): {per_layer}"
+                          + (f"; prefill drops per layer at capacity {cap}: "
+                             f"{drops} (CPU run {t_host:.1f} s)"
+                             if not control else ""))
+            del params, on_card
+        check_limits(arch, MOE_LIMITS[arch], sound, ctl)
+
+
+def moe_serve_paths(paths) -> None:
+    """``launch.serve --arch granite_moe_1b_a400m`` at full width and depth
+    with the reference's defaults (``serve_path``: 8 x 32, 32 decode steps,
+    max_seq 128; 24 flash launches a prefill and 24 decode launches a
+    step), then its cache after prefill through the registry from the
+    captured params (``serve-granite-ms2m``: K and V of 24 layers x 8 x 128
+    slots x 8 kv heads x 64 in bf16, 50,331,648 bytes, and 98,304 bytes of
+    pos), 8 decode steps from the pulled copy bit-equal to the source's."""
+    captured = {}
+    cfg = serve_path(paths, "serve-granite", "granite_moe_1b_a400m", [], 8,
+                     32, 32, captured)
+    kv = 2 * cfg.num_layers * 8 * 128 * cfg.num_kv_heads * (
+        cfg.resolved_head_dim * 2)
+    pos = cfg.num_layers * 8 * 128 * 4
+    check(kv == 50_331_648 and pos == 98_304, f"granite: K/V {kv} bytes, "
+          f"pos {pos}")
+    launches = ms2m_state("serve-granite-ms2m", cfg, captured,
+                          ("fingerprint_lanes", "decode_attention"),
+                          kv + pos)
+    check(launches["decode_attention"] == 16 * cfg.num_layers
+          and launches["flash_attention"] == 0,
+          f"serve-granite-ms2m: launches {launches}, want 16 decode steps "
+          "(8 from the source, 8 from the pulled copy) and no prefill")
+    paths["serve-granite-ms2m"] = launches
+    captured.clear()
+    torch.cuda.empty_cache()
+
+
 def trainer_migration_paths(paths) -> None:
     """A paper-consumer ``TrainerWorker`` at full width migrated through
     ``ms2m_statefulset`` and through ``ms2m_precopy`` with int8 deltas,
@@ -2574,7 +2790,7 @@ def main() -> int:
     timed(build_phase)
     rows = timed(kernel_phase)
     for phase in (model_phase, train_model_phase, rg_model_phase,
-                  xl_model_phase, dense_model_phase):
+                  xl_model_phase, dense_model_phase, moe_model_phase):
         timed(phase)
     fold = ("decode_attention", "fingerprint_lanes")
     paths = {}
@@ -2588,7 +2804,7 @@ def main() -> int:
              ("decode_attention", "xor_fp_lanes", "int8_fp_lanes"))):
         paths[label] = path_phase(argv, label, needs)
     for phase in (train_paths, rg_serve_paths, xl_paths, dense_serve_paths,
-                  trainer_migration_paths):
+                  moe_serve_paths, trainer_migration_paths):
         timed(phase, paths)
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in paths.values())

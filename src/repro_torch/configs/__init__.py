@@ -5,10 +5,13 @@ paper's evaluation microservice, the model the migration path runs),
 ``smollm_360m`` (the training and serving CLIs' default),
 ``codeqwen1_5_7b``, ``gemma3_4b`` and ``chatglm3_6b`` (the dense family:
 MHA, 5:1 local:global with QK-norm and a logits softcap, and partial
-RoPE over 2 kv heads; served), ``recurrentgemma_2b`` (the RG-LRU +
-local-attention hybrid, served) and ``xlstm_350m`` (mLSTM + sLSTM blocks,
-trained and served); every other architecture name raises until its model
-family is ported.
+RoPE over 2 kv heads; served), ``granite_moe_1b_a400m`` and
+``llama4_maverick_400b_a17b`` (MoE FFNs: 32 experts top-8 in every layer;
+128 experts top-1 with a shared expert, interleaved with dense layers;
+granite served at full width, llama4 at its smoke size),
+``recurrentgemma_2b`` (the RG-LRU + local-attention hybrid, served) and
+``xlstm_350m`` (mLSTM + sLSTM blocks, trained and served); every other
+architecture name raises until its model family is ported.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ ARCHS: List[str] = [
     "paper_consumer",  # the paper's own evaluation microservice model
 ]
 PORTED = ("paper_consumer", "smollm_360m", "codeqwen1_5_7b", "gemma3_4b",
-          "chatglm3_6b", "recurrentgemma_2b", "xlstm_350m")
+          "chatglm3_6b", "granite_moe_1b_a400m", "llama4_maverick_400b_a17b",
+          "recurrentgemma_2b", "xlstm_350m")
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 

@@ -8,14 +8,22 @@ recurrentgemma_2b, and every decode step through the decode-attention
 kernel; ``cpu`` runs their plain versions).  For xlstm_350m the prefill
 and the decode steps thread the recurrent state through the mLSTM and
 sLSTM recurrences on either device, as the reference does: its kernels
-take fresh-state sequences only (training).  Frontend models (audio
-frames, image patches) are not ported yet.
+take fresh-state sequences only (training).  The MoE FFN of
+granite_moe_1b_a400m and llama4_maverick_400b_a17b is sorts, gathers and
+batched einsums on either device (the reference has no kernel for it);
+llama4's full config (397.7 B params) fits no card, so run its
+``--smoke`` config.  Frontend models (audio frames, image patches) are
+not ported yet.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \
       --smoke --requests 16 --decode-steps 32 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma_2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_350m
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch granite_moe_1b_a400m
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama4_maverick_400b_a17b --smoke --device cpu
 """
 from __future__ import annotations
 

@@ -21,6 +21,15 @@ Usage:
       --steps 50 --smoke --registry REG --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm_350m \
       --steps 4 --ckpt-every 100 --registry REG
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch granite_moe_1b_a400m --smoke --steps 6 --registry REG \
+      --device cpu
+
+MoE configs (granite_moe_1b_a400m, llama4_maverick_400b_a17b) add the
+router's auxiliary loss (``router_aux_coef`` times the Switch loss and
+z-loss) to the cross-entropy; their gradients through the dispatch and
+combine gathers are checked on the CPU against the reference, not yet on
+the card.
 """
 from __future__ import annotations
 

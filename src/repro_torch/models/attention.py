@@ -25,14 +25,14 @@ from repro_torch.models import common
 from repro_torch.models.common import param
 
 
-def init_attention(gen: torch.Generator, cfg):
+def init_attention(cfg):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     qdim, kvdim = cfg.num_heads * hd, cfg.num_kv_heads * hd
     p = {
-        "wq": param(gen, (d, qdim)),
-        "wk": param(gen, (d, kvdim)),
-        "wv": param(gen, (d, kvdim)),
-        "wo": param(gen, (qdim, d)),
+        "wq": param((d, qdim)),
+        "wk": param((d, kvdim)),
+        "wv": param((d, kvdim)),
+        "wo": param((qdim, d)),
     }
     if cfg.use_qk_norm:
         p["q_norm"] = common.zeros_param((hd,))

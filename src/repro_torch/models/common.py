@@ -2,33 +2,143 @@
 
 Port of ``repro.models.common``.  Params are plain dicts of tensors (the
 reference's ``ParamLeaf`` sharding tags have no counterpart here).
-Initializers draw from an explicit ``torch.Generator`` on the CPU, so a
-seed gives the same weights on every device; they will not match JAX's
-threefry draws (tests load the reference's weights through
-``repro_torch.convert``).
+
+Initializers return ``Leaf`` specs (shape, scale, dtype), not tensors;
+``draw`` fills tensors from them on a pool of host threads.  A leaf is
+named by its path in the params tree (and its row, for a leaf stacked
+over layer groups), and every block of ``BLOCK`` elements of it is drawn
+from its own generator, seeded from a hash of (seed, name, block).  The
+draw runs on the host for every device and does not depend on the order
+of the blocks, so a seed gives the same weights on every device and for
+any thread count.  They will not match JAX's threefry draws (tests load
+the reference's weights through ``repro_torch.convert``).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import dataclasses
+import hashlib
+import math
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+BLOCK = 1 << 20  # elements drawn from one generator
+# P(|z| < 2) for a standard normal z: sqrt(2) erfinv(u), u uniform on
+# (-_TRUNC, _TRUNC), is z truncated to (-2, 2)
+_TRUNC = math.erf(math.sqrt(2.0))
 
-def param(gen: torch.Generator, shape: Sequence[int],
-          scale: Optional[float] = None, dtype=torch.float32):
+
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    """A parameter leaf to draw: truncated normal on [-2, 2] times
+    ``scale``; zeros where ``scale`` is 0."""
+    shape: Tuple[int, ...]
+    scale: float
+    dtype: torch.dtype = torch.float32
+
+
+def param(shape: Sequence[int], scale: Optional[float] = None,
+          dtype=torch.float32) -> Leaf:
     """Truncated-normal init with fan-in scaling (scale=None) or constant std."""
     shape = tuple(shape)
     if scale is None:
         fan_in = shape[0] if len(shape) >= 1 else 1
         scale = 1.0 / np.sqrt(max(1, fan_in))
-    init = torch.empty(shape, dtype=torch.float32)
-    torch.nn.init.trunc_normal_(init, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (scale * init).to(dtype)
+    return Leaf(shape, float(scale), dtype)
 
 
-def zeros_param(shape: Sequence[int], dtype=torch.float32):
-    return torch.zeros(tuple(shape), dtype=dtype)
+def zeros_param(shape: Sequence[int], dtype=torch.float32) -> Leaf:
+    return Leaf(tuple(shape), 0.0, dtype)
+
+
+def leaf_paths(tree, path: str = ""):
+    """(path, leaf) of every leaf of a nested dict, ``a/b/c`` style."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaf_paths(v, f"{path}/{k}" if path else str(k))
+    else:
+        yield path, tree
+
+
+def allocate(tree, lead: Tuple[int, ...] = (), device="cpu"):
+    """Uninitialized tensors of a spec tree's shapes (with leading axes
+    ``lead``) and dtypes, on ``device``."""
+    if isinstance(tree, dict):
+        return {k: allocate(v, lead, device) for k, v in tree.items()}
+    return torch.empty(lead + tree.shape, dtype=tree.dtype, device=device)
+
+
+def _draw_block(seed: int, name: str, leaf: Leaf, out, j: int, buffer):
+    """Block ``j`` of a leaf into ``out`` (the leaf's elements, flat, on
+    any device).  u uniform on [0, 1) from the block's PCG64 stream,
+    then sqrt(2) erfinv((2u - 1) _TRUNC), clamped to [-2, 2], times the
+    scale, in float32; drawn in place on the host, or into ``buffer()``
+    and copied to ``out``."""
+    dst = out[j * BLOCK:(j + 1) * BLOCK]
+    direct = dst.device.type == "cpu" and dst.dtype == torch.float32
+    x = dst if direct else buffer()[:dst.numel()]
+    key = hashlib.blake2b(f"{seed}/{name}/{j}".encode(), digest_size=16)
+    seq = np.random.SeedSequence(int.from_bytes(key.digest(), "little"))
+    np.random.Generator(np.random.PCG64(seq)).random(out=x.numpy(),
+                                                     dtype=np.float32)
+    x.mul_(2 * _TRUNC).sub_(_TRUNC).erfinv_().mul_(math.sqrt(2.0))
+    x.clamp_(-2.0, 2.0).mul_(leaf.scale)
+    if not direct:
+        dst.copy_(x)
+
+
+def draw(seed: int, items: Iterable) -> None:
+    """Fill each ``(name, leaf, out)`` item's tensor ``out`` (the leaf's
+    shape, contiguous, on any device): zeros at once, drawn leaves block
+    by block on as many host threads as torch's intra-op thread count.
+    Each thread holds at most one block on the host."""
+    jobs = []
+    for name, leaf, out in items:
+        if leaf.scale == 0.0:
+            out.zero_()
+            continue
+        flat = out.view(-1)
+        jobs += [(name, leaf, flat, j)
+                 for j in range(-(-flat.numel() // BLOCK))]
+    local = threading.local()
+
+    def buffer():
+        if not hasattr(local, "buf"):
+            local.buf = torch.empty(BLOCK, dtype=torch.float32)
+        return local.buf
+
+    def run(job):
+        _draw_block(seed, *job, buffer)
+
+    threads = torch.get_num_threads()
+    # the pool's threads are the parallelism: torch's intra-op threads
+    # on top of them would oversubscribe the cores
+    torch.set_num_threads(1)
+    try:
+        with ThreadPoolExecutor(threads) as pool:
+            for _ in pool.map(run, jobs):
+                pass
+    finally:
+        torch.set_num_threads(threads)
+
+
+def materialize(tree, seed: int, path: str = "", row: Optional[int] = None,
+                device="cpu"):
+    """A spec tree -> the same tree of tensors on ``device``, each leaf
+    drawn under its name: ``path/<its keys>``, and ``[row]`` where it is
+    row ``row`` of a leaf stacked over layer groups."""
+    out = allocate(tree, device=device)
+    draw(seed, ((leaf_name(p, row), leaf, t) for (p, leaf), (_, t)
+                in zip(leaf_paths(tree, path), leaf_paths(out))))
+    return out
+
+
+def leaf_name(path: str, row: Optional[int] = None) -> str:
+    """The name a leaf is drawn under (``row``: its row of a stacked leaf)."""
+    return path if row is None else f"{path}[{row}]"
 
 
 # ---------------------------------------------------------------------------
@@ -94,8 +204,8 @@ def rope_for(cfg, x, positions, local: bool):
 # embedding / unembedding
 # ---------------------------------------------------------------------------
 
-def init_embedding(gen: torch.Generator, cfg):
-    return {"table": param(gen, (cfg.padded_vocab, cfg.d_model), scale=0.02)}
+def init_embedding(cfg):
+    return {"table": param((cfg.padded_vocab, cfg.d_model), scale=0.02)}
 
 
 def embed(params, ids, cfg):

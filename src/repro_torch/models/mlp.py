@@ -1,7 +1,6 @@
 """Dense FFN: SwiGLU (default) or plain activation MLP (whisper)."""
 from __future__ import annotations
 
-import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import param
@@ -12,14 +11,14 @@ def _act(name: str):
             "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
 
 
-def init_mlp(gen: torch.Generator, cfg, d_ff: int = 0):
+def init_mlp(cfg, d_ff: int = 0):
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     p = {
-        "w_up": param(gen, (d, ff)),
-        "w_down": param(gen, (ff, d)),
+        "w_up": param((d, ff)),
+        "w_down": param((ff, d)),
     }
     if cfg.mlp_gated:
-        p["w_gate"] = param(gen, (d, ff))
+        p["w_gate"] = param((d, ff))
     return p
 
 

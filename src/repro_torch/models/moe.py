@@ -1,0 +1,191 @@
+"""Mixture-of-Experts FFN with capacity-bounded sort-based dispatch.
+
+Port of ``repro.models.moe``: top-k softmax gating with a Switch-style
+load-balancing auxiliary loss and a capacity factor; tokens past an
+expert's capacity drop (their residual passes through).  Dispatch and
+combine are sorts and gathers, the expert products three batched
+einsums over ``[.., E, C, D]`` buffers.
+
+The reference's sharding constraints on the expert buffers (the
+``constrain`` hints for expert parallelism) have no counterpart here:
+the port runs on one device.
+
+Determinism: the local route (the default) is scatter-free, sorts,
+``torch.gather`` and a reshape-sum, so it gives the same bits on every
+run on either device.  The global route's dispatch writes each kept
+entry to its own slot (``index_put_`` with accumulation, deterministic
+under the package's deterministic mode; every real slot receives one
+entry), and its combine un-sorts the entries and sums each token's K in
+a fixed order instead of the reference's scatter-add.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import mlp as _mlp
+from repro_torch.models.common import param
+
+
+def init_moe(cfg):
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    p = {
+        "router": param((d, E), scale=0.02),
+        # fan-in is shape[0], as in the reference: the expert stacks are
+        # scaled by 1/sqrt(E), not 1/sqrt(d)
+        "w_gate": param((E, d, ff)),
+        "w_up": param((E, d, ff)),
+        "w_down": param((E, ff, d)),
+    }
+    if cfg.shared_expert:
+        p["shared"] = _mlp.init_mlp(cfg)
+    return p
+
+
+def expert_capacity(cfg, tokens: int) -> int:
+    cap = int(tokens * cfg.num_experts_per_tok * cfg.capacity_factor
+              / cfg.num_experts)
+    return max(8, -(-cap // 8) * 8)  # round up to 8
+
+
+def moe_forward(params, x, cfg):
+    """x [B,S,D] -> (out [B,S,D], aux_loss scalar)."""
+    if cfg.moe_routing == "local":
+        return _moe_forward_local(params, x, cfg)
+    return _moe_forward_global(params, x, cfg)
+
+
+def top_k(probs, k: int):
+    """``jax.lax.top_k``: the k largest along the last axis, equal values
+    in index order (a stable descending sort; ``torch.topk`` documents no
+    order for ties)."""
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], ids[..., :k]
+
+
+def _router(params, xf, cfg):
+    """shared: logits/top-k/aux over a flat token dim (batched or global)."""
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    logits = (xf @ params["router"].to(xf.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, gate_ids = top_k(probs, K)
+    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+    one_hot_top1 = F.one_hot(gate_ids[..., 0], E).float()
+    aux = E * torch.mean(one_hot_top1.reshape(-1, E).mean(0)
+                         * probs.reshape(-1, E).mean(0))
+    aux = aux + 1e-3 * torch.mean(torch.logsumexp(logits, -1) ** 2)
+    return gate_w, gate_ids, aux
+
+
+def _experts(params, expert_in, dt, lead: str):
+    """The three expert products over ``expert_in`` [..., E, C, D]
+    (``lead``: the einsum letters of its axes before E)."""
+    wg = params["w_gate"].to(dt)
+    wu = params["w_up"].to(dt)
+    wd = params["w_down"].to(dt)
+    h = F.silu(torch.einsum(f"{lead}ecd,edf->{lead}ecf", expert_in, wg))
+    h = h * torch.einsum(f"{lead}ecd,edf->{lead}ecf", expert_in, wu)
+    return torch.einsum(f"{lead}ecf,efd->{lead}ecd", h, wd)
+
+
+def _take(a, idx):
+    """``take_along_axis`` on axis 1 of ``a`` [B, N, D] with ``idx`` [B, M]."""
+    return torch.gather(a, 1, idx[..., None].expand(-1, -1, a.shape[-1]))
+
+
+def _moe_forward_local(params, x, cfg):
+    """Grouped local routing, formulated scatter-free: every bookkeeping op
+    is batched over the batch-row axis and is a sort or a gather.
+
+      dispatch: entries sorted by expert are contiguous runs; slot (e,c)
+                reads entry ``starts[e]+c`` (a gather, not a scatter).
+      combine:  un-sort by the inverse permutation and sum the K expert
+                contributions per token (reshape + sum, not a scatter).
+    """
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    C = expert_capacity(cfg, S)  # per-row capacity
+    dt, dev = x.dtype, x.device
+
+    gate_w, gate_ids, aux = _router(params, x, cfg)  # [B,S,K]
+
+    flat_e = gate_ids.reshape(B, S * K)
+    order = torch.sort(flat_e, dim=-1, stable=True).indices
+    inv_order = torch.sort(order, dim=-1, stable=True).indices
+    e_s = torch.gather(flat_e, 1, order)
+    t_s = order // K  # token id of sorted entry (entries are token-major)
+
+    # run starts per expert: starts[b,e] = first sorted index of expert e
+    experts = torch.arange(E, device=dev).expand(B, E).contiguous()
+    starts = torch.searchsorted(e_s, experts, side="left")
+
+    # ---- dispatch as a gather: slot (e,c) <- sorted entry starts[e]+c ----
+    src = starts[:, :, None] + torch.arange(C, device=dev)  # [B,E,C]
+    src_flat = src.reshape(B, E * C)
+    in_range = src_flat < S * K
+    src_safe = torch.clamp(src_flat, max=S * K - 1)
+    e_at_src = torch.gather(e_s, 1, src_safe)
+    hit = in_range & (e_at_src == torch.arange(E * C, device=dev) // C)
+    tok = torch.gather(t_s, 1, src_safe)  # [B,E*C]
+    gathered = _take(x, torch.where(hit, tok, 0))
+    expert_in = (gathered * hit[..., None].to(dt)).reshape(B, E, C, D)
+
+    expert_out = _experts(params, expert_in, dt, "b")
+
+    # ---- combine as a gather: sorted entry i sits at slot e_s*C + rank ----
+    flat_out = expert_out.reshape(B, E * C, D)
+    rank = (torch.arange(S * K, device=dev)
+            - torch.gather(starts, 1, e_s))
+    kept = rank < C  # capacity overflow drops (token keeps its residual)
+    slot = torch.where(kept, e_s * C + rank, 0)
+    per_entry = _take(flat_out, slot) * kept[..., None].to(dt)
+    # un-sort back to token-major order and fold the K contributions
+    unsorted = _take(per_entry, inv_order)
+    w = gate_w.reshape(B, S, K).to(dt)
+    out = torch.einsum("bskd,bsk->bsd", unsorted.reshape(B, S, K, D), w)
+
+    if cfg.shared_expert:
+        out = out + _mlp.mlp_forward(params["shared"], x, cfg)
+    return out, aux
+
+
+def _moe_forward_global(params, x, cfg):
+    """Baseline: one global token pool (global sort)."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    T = B * S
+    C = expert_capacity(cfg, T)
+    dt, dev = x.dtype, x.device
+    xf = x.reshape(T, D)
+
+    # the reference inlines _router's computation here (a flat [T,E])
+    gate_w, gate_ids, aux = _router(params, xf, cfg)  # [T,K]
+
+    # ---- sort-based dispatch ----
+    flat_e = gate_ids.reshape(-1)  # [T*K], entry t*K + k
+    order = torch.sort(flat_e, stable=True).indices
+    e_s = flat_e[order]
+    t_s = order // K
+    seg_start = torch.searchsorted(e_s, e_s, side="left")
+    pos = torch.arange(T * K, device=dev) - seg_start  # rank within expert
+    keep = pos < C
+    slot = torch.where(keep, e_s * C + pos, E * C)  # E*C = dump slot
+
+    gathered = xf[t_s] * keep[:, None].to(dt)  # [T*K, D]
+    buf = torch.zeros((E * C + 1, D), dtype=dt, device=dev)
+    buf.index_put_((slot,), gathered, accumulate=True)
+    expert_in = buf[: E * C].reshape(E, C, D)
+
+    expert_out = _experts(params, expert_in, dt, "")
+
+    # ---- combine: un-sort to token-major order, sum each token's K ----
+    flat_out = expert_out.reshape(E * C, D)
+    w_s = gate_w.reshape(-1)[order]
+    vals = flat_out[torch.clamp(slot, max=E * C - 1)]
+    vals = vals * (w_s * keep).to(dt)[:, None]
+    inv_order = torch.sort(order, stable=True).indices
+    out = vals[inv_order].reshape(T, K, D).sum(1)
+
+    if cfg.shared_expert:
+        out = out + _mlp.mlp_forward(params["shared"], x, cfg).reshape(T, D)
+    return out.reshape(B, S, D), aux

@@ -22,24 +22,24 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models.common import param, zeros_param
 
 
-def init_rglru_block(gen: torch.Generator, cfg):
+def init_rglru_block(cfg):
     d = cfg.d_model
     w = cfg.rglru_width or d
     H = cfg.num_heads
     hb = w // H  # block-diagonal gate head width
     return {
-        "w_x": param(gen, (d, w)),
-        "w_gate_branch": param(gen, (d, w)),
-        "conv_w": param(gen, (cfg.conv1d_width, w), scale=0.1),
+        "w_x": param((d, w)),
+        "w_gate_branch": param((d, w)),
+        "conv_w": param((cfg.conv1d_width, w), scale=0.1),
         "conv_b": zeros_param((w,)),
         # block-diagonal input/recurrence gates (per-head [hb, hb])
-        "gate_a_w": param(gen, (H, hb, hb)),
-        "gate_x_w": param(gen, (H, hb, hb)),
+        "gate_a_w": param((H, hb, hb)),
+        "gate_x_w": param((H, hb, hb)),
         "gate_a_b": zeros_param((w,)),
         "gate_x_b": zeros_param((w,)),
         # a-parameter initialized so a = sigmoid(Λ) spans ~[0.9, 0.999]
-        "a_param": param(gen, (w,), scale=0.5),
-        "w_out": param(gen, (w, d)),
+        "a_param": param((w,), scale=0.5),
+        "w_out": param((w, d)),
     }
 
 

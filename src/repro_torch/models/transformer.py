@@ -1,8 +1,9 @@
-"""Decoder LM: dense attention, the RG-LRU hybrid and xLSTM.
+"""Decoder LM: dense attention, MoE, the RG-LRU hybrid and xLSTM.
 
 Port of ``repro.models.transformer`` for patterns of attention, RG-LRU,
-mLSTM and sLSTM mixers with MLPs or none (paper_consumer, smollm_360m,
-recurrentgemma_2b, xlstm_350m):
+mLSTM and sLSTM mixers with MLPs, MoE FFNs or none (paper_consumer,
+smollm_360m, the dense family, granite_moe_1b_a400m,
+llama4_maverick_400b_a17b, recurrentgemma_2b, xlstm_350m):
 training (``lm_forward``, ``lm_loss``) and serving (``init_cache``,
 ``lm_prefill``, ``lm_decode_step``, ``lm_append``).  The reference scans
 stacked per-group params with ``lax.scan``; here a Python loop walks the
@@ -34,7 +35,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.models import attention, common, mlp, rglru, xlstm
+from repro_torch.models import attention, common, mlp, moe, rglru, xlstm
 from repro_torch.models.config import BlockKind, ModelConfig
 from repro_torch.models.common import param, zeros_param
 from repro_torch.tree import flatten, tree_map, unflatten
@@ -65,17 +66,17 @@ _RECURRENT = {
         xlstm.slstm_block_forward, xlstm.slstm_decode_step),
 }
 PORTED_MIXERS = MIXERS_WITH_KV + tuple(_RECURRENT)
+PORTED_FFNS = (BlockKind.MLP, BlockKind.MOE, BlockKind.NONE)
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for the parts of a config this port does not run yet."""
     for mixer, ffn in cfg.pattern:
-        if mixer not in PORTED_MIXERS or ffn not in (BlockKind.MLP,
-                                                     BlockKind.NONE):
+        if mixer not in PORTED_MIXERS or ffn not in PORTED_FFNS:
             raise NotImplementedError(
                 f"{cfg.name}: block ({mixer.value}, {ffn.value}) is not "
                 "ported yet to repro_torch (attention, RG-LRU, mLSTM or "
-                "sLSTM, with an MLP or none)")
+                "sLSTM, with an MLP, an MoE FFN or none)")
     if cfg.is_encoder_decoder or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and modality frontends are not "
@@ -86,73 +87,54 @@ def check_ported(cfg: ModelConfig) -> None:
 # init
 # ---------------------------------------------------------------------------
 
-def _init_block(gen, cfg, mixer: BlockKind, ffn: BlockKind):
-    """One attention, RG-LRU, mLSTM or sLSTM block (``check_ported``
-    admits no other)."""
+def _init_block(cfg, mixer: BlockKind, ffn: BlockKind):
+    """One block's leaf specs: attention, RG-LRU, mLSTM or sLSTM, with an
+    MLP, an MoE FFN or none (``check_ported`` admits no other)."""
     blk: Dict[str, Any] = {"norm1": zeros_param((cfg.d_model,))}
     if mixer in MIXERS_WITH_KV:
-        blk["attn"] = attention.init_attention(gen, cfg)
+        blk["attn"] = attention.init_attention(cfg)
     else:
         rec = _RECURRENT[mixer]
-        blk[rec.key] = rec.init_block(gen, cfg)
+        blk[rec.key] = rec.init_block(cfg)
     if ffn == BlockKind.MLP:
         blk["norm2"] = zeros_param((cfg.d_model,))
-        blk["mlp"] = mlp.init_mlp(gen, cfg)
+        blk["mlp"] = mlp.init_mlp(cfg)
+    elif ffn == BlockKind.MOE:
+        blk["norm2"] = zeros_param((cfg.d_model,))
+        blk["moe"] = moe.init_moe(cfg)
     return blk
 
 
-def _stacked_like(tree, n: int, device):
-    """Uninitialized leaves of ``tree``'s shapes with a leading axis of
-    ``n``, on ``device``."""
-    if isinstance(tree, dict):
-        return {k: _stacked_like(v, n, device) for k, v in tree.items()}
-    return torch.empty((n,) + tuple(tree.shape), dtype=tree.dtype,
-                       device=device)
-
-
-def _fill_row(stacked, tree, g: int) -> None:
-    """Copy ``tree``'s leaves into row ``g`` of ``stacked``'s."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            _fill_row(stacked[k], v, g)
-    else:
-        stacked[g].copy_(tree)
-
-
-def _init_groups(gen, cfg, n_groups: int, device):
-    """Stacked per-position block params: {'b0': stacked, 'b1': ...}.
-
-    Each stacked leaf is allocated once, on ``device``; each group's block
-    is drawn on the host, position by position and group by group (the
-    generator's order), and copied into its row.  So at most one block's
-    leaves exist twice, where stacking drawn blocks would hold every
-    block's twice (31 GB of host memory for codeqwen1_5_7b)."""
-    groups = {}
-    for i, (mixer, ffn) in enumerate(cfg.pattern):
-        for g in range(n_groups):
-            blk = _init_block(gen, cfg, mixer, ffn)
-            if g == 0:
-                groups[f"b{i}"] = _stacked_like(blk, n_groups, device)
-            _fill_row(groups[f"b{i}"], blk, g)
-    return groups
-
-
 def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda"):
-    """Random weights from a seeded ``torch.Generator`` (drawn on the host
-    for every device, so a seed gives the same weights on each), on
-    ``device``."""
+    """Random weights for ``seed`` on ``device`` (``common.draw``: drawn on
+    the host on torch's intra-op thread count of threads, the same bits
+    for every device and thread count).
+
+    Each group's params are stacked over groups: each stacked leaf is
+    allocated once, on ``device``, and every group's row of it is drawn
+    as ``groups/b<i>/<keys>[<group>]``, block by block, straight into it
+    (through one block-sized host buffer a thread for the card).  So the
+    host never holds the model (31 GB for codeqwen1_5_7b in float32)."""
     check_ported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
-    params: Dict[str, Any] = {
-        "embed": tree_map(lambda t: t.to(dev),
-                          common.init_embedding(gen, cfg)),
-        "groups": _init_groups(gen, cfg, cfg.num_groups, dev),
-        "final_norm": zeros_param((cfg.d_model,)).to(dev),
-    }
+    top: Dict[str, Any] = {"embed": common.init_embedding(cfg),
+                           "final_norm": zeros_param((cfg.d_model,))}
     if not cfg.tie_embeddings:
-        params["unembed"] = param(gen, (cfg.padded_vocab, cfg.d_model),
-                                  scale=0.02).to(dev)
+        top["unembed"] = param((cfg.padded_vocab, cfg.d_model), scale=0.02)
+    params = common.allocate(top, device=dev)
+    items = [(name, leaf, t) for (name, leaf), (_, t)
+             in zip(common.leaf_paths(top), common.leaf_paths(params))]
+    G = cfg.num_groups
+    params["groups"] = {}
+    for i, (mixer, ffn) in enumerate(cfg.pattern):
+        spec = _init_block(cfg, mixer, ffn)
+        stacked = params["groups"][f"b{i}"] = common.allocate(spec, (G,), dev)
+        for (path, leaf), (_, t) in zip(
+                common.leaf_paths(spec, f"groups/b{i}"),
+                common.leaf_paths(stacked)):
+            items += [(common.leaf_name(path, g), leaf, t[g])
+                      for g in range(G)]
+    common.draw(seed, items)
     return params
 
 
@@ -170,7 +152,6 @@ def _apply_block(blk, x, positions, cfg, i: int, *, enc_out=None,
         raise NotImplementedError(
             "cross-attention (enc_out) is not ported yet to repro_torch")
     mixer, ffn = cfg.pattern[i]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = common.rms_norm(x, blk["norm1"], cfg.norm_eps)
     if mixer in MIXERS_WITH_KV:
         y = attention.attn_forward(blk["attn"], h, positions, cfg,
@@ -179,11 +160,22 @@ def _apply_block(blk, x, positions, cfg, i: int, *, enc_out=None,
     else:
         rec = _RECURRENT[mixer]
         y, _ = rec.forward(blk[rec.key], h, cfg)
-    x = x + y
-    if ffn == BlockKind.MLP:
-        h = common.rms_norm(x, blk["norm2"], cfg.norm_eps)
-        x = x + mlp.mlp_forward(blk["mlp"], h, cfg)
+    x, aux = _ffn(blk, x + y, cfg, ffn)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
+
+
+def _ffn(blk, x, cfg, ffn: BlockKind):
+    """``x`` plus the block's FFN of its normed ``x`` -> (x, the MoE's aux
+    loss, or None for an MLP or no FFN)."""
+    if ffn == BlockKind.NONE:
+        return x, None
+    h = common.rms_norm(x, blk["norm2"], cfg.norm_eps)
+    if ffn == BlockKind.MLP:
+        return x + mlp.mlp_forward(blk["mlp"], h, cfg), None
+    y, aux = moe.moe_forward(blk["moe"], h, cfg)
+    return x + y, aux
 
 
 def _run_groups(groups, x, positions, cfg, *, enc_out=None, causal=True,
@@ -329,10 +321,7 @@ def _run_layers(params, x, positions, cfg, cache, kind: str):
                 mix = rec.decode if kind == "decode" else rec.forward
                 y, new = mix(blk[rec.key], h, cfg, layer_cache)
                 _store_state(cache, f"b{i}", g, new)
-            x = x + y
-            if ffn == BlockKind.MLP:
-                h = common.rms_norm(x, blk["norm2"], cfg.norm_eps)
-                x = x + mlp.mlp_forward(blk["mlp"], h, cfg)
+            x, _ = _ffn(blk, x + y, cfg, ffn)  # the MoE's aux is dropped
     return x
 
 

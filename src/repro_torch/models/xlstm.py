@@ -29,20 +29,20 @@ def _inner(cfg):
     return 2 * cfg.d_model
 
 
-def init_mlstm_block(gen: torch.Generator, cfg):
+def init_mlstm_block(cfg):
     d = cfg.d_model
     m = _inner(cfg)
     H = cfg.num_heads
     return {
-        "w_up": param(gen, (d, m)),
-        "w_gate": param(gen, (d, m)),
-        "wq": param(gen, (m, m)),
-        "wk": param(gen, (m, m)),
-        "wv": param(gen, (m, m)),
-        "w_if": param(gen, (m, 2 * H), scale=0.02),
+        "w_up": param((d, m)),
+        "w_gate": param((d, m)),
+        "wq": param((m, m)),
+        "wk": param((m, m)),
+        "wv": param((m, m)),
+        "w_if": param((m, 2 * H), scale=0.02),
         "b_if": zeros_param((2 * H,)),
         "out_norm": zeros_param((m // H,)),
-        "w_down": param(gen, (m, d)),
+        "w_down": param((m, d)),
     }
 
 
@@ -105,15 +105,15 @@ def init_mlstm_state(cfg, batch: int, device="cuda"):
 _GATES = ("i", "f", "z", "o")
 
 
-def init_slstm_block(gen: torch.Generator, cfg):
+def init_slstm_block(cfg):
     d = cfg.d_model
     H = cfg.num_heads
     hb = d // H
-    p = {"w_out": param(gen, (d, d))}
+    p = {"w_out": param((d, d))}
     for g in _GATES:
-        p[f"w_{g}"] = param(gen, (d, d))
+        p[f"w_{g}"] = param((d, d))
         # block-diagonal per-head recurrence (xLSTM §2.2)
-        p[f"r_{g}"] = param(gen, (H, hb, hb), scale=0.02)
+        p[f"r_{g}"] = param((H, hb, hb), scale=0.02)
         p[f"b_{g}"] = zeros_param((d,))
     return p
 

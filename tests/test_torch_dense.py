@@ -239,29 +239,34 @@ def test_gemma3_ring_rolls_past_the_window():
 
 
 # ---------------------------------------------------------------------------
-# init_lm: stacked leaves filled row by row
+# init_lm: stacked leaves filled row by row, block by block on threads
 # ---------------------------------------------------------------------------
 
 def _stacked_init(cfg, seed):
-    """The tree ``init_lm`` built before it filled stacked leaves in place:
-    every group's block drawn, then stacked (``torch.stack``), in the same
-    generator order."""
+    """The tree ``init_lm`` builds by filling stacked leaves in place, built
+    the other way: every group's block drawn on its own into fresh
+    tensors (``common.materialize`` under the block's path and group
+    row), then stacked (``torch.stack``)."""
     def stack(trees):
         if isinstance(trees[0], dict):
             return {k: stack([t[k] for t in trees]) for k in trees[0]}
         return torch.stack(trees)
 
-    gen = torch.Generator().manual_seed(seed)
+    def draw(tree, path, row=None):
+        return tcommon.materialize(tree, seed, path, row)
+
     params = {
-        "embed": tcommon.init_embedding(gen, cfg),
-        "groups": {f"b{i}": stack([TT._init_block(gen, cfg, mixer, ffn)
-                                   for _ in range(cfg.num_groups)])
+        "embed": draw(tcommon.init_embedding(cfg), "embed"),
+        "groups": {f"b{i}": stack([draw(TT._init_block(cfg, mixer, ffn),
+                                        f"groups/b{i}", g)
+                                   for g in range(cfg.num_groups)])
                    for i, (mixer, ffn) in enumerate(cfg.pattern)},
-        "final_norm": tcommon.zeros_param((cfg.d_model,)),
+        "final_norm": torch.zeros((cfg.d_model,)),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = tcommon.param(gen, (cfg.padded_vocab,
-                                                cfg.d_model), scale=0.02)
+        params["unembed"] = draw(tcommon.param((cfg.padded_vocab,
+                                                cfg.d_model), scale=0.02),
+                                 "unembed")
     return params
 
 

@@ -62,7 +62,10 @@ def _decode_inputs(dev, B, S, H, Hkv, D, dtype, ring, seed=0):
                                          (8, 128, 32, 2, 128),
                                          (8, 128, 8, 4, 256),
                                          (2, 1024, 8, 4, 256),
-                                         (2, 1280, 8, 4, 256)])
+                                         (2, 1280, 8, 4, 256),
+                                         # granite_moe_1b_a400m's serve
+                                         # shape (16 heads over 8, D 64)
+                                         (8, 128, 16, 8, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain(cuda, B, S, H, Hkv, D, dtype, ring):
     q, k, v, qp, kp = _decode_inputs(cuda, B, S, H, Hkv, D, dtype, ring)
@@ -486,6 +489,7 @@ FLASH_CASES = [  # (B, Sq, Sk, H, Hkv, D, causal, window)
     (8, 32, 32, 8, 4, 256, True, 1024),
     (2, 1152, 1152, 8, 4, 256, True, 1024),
     (2, 1152, 1152, 8, 4, 256, True, 0),
+    (8, 32, 32, 16, 8, 64, True, 0),     # granite_moe_1b_a400m prefill
 ]
 
 
@@ -1138,3 +1142,86 @@ def test_train_cli_xlstm_smoke_on_card(cuda, tmp_path, capsys):
                        "--registry", str(tmp_path)]) == 0
     assert (ml.LAUNCHES - m0, sl.LAUNCHES - s0) == (3 * 7, 3 * 1)
     assert "[train] done; final loss" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the MoE FFN and init_lm on the card
+# ---------------------------------------------------------------------------
+
+def _granite_moe(route, capacity_factor=1.25):
+    """granite_moe_1b_a400m's MoE layer at full width (32 experts top-8,
+    d_model 1024, d_ff 512), drawn on the host for seed 3."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import common, moe
+
+    cfg = dataclasses.replace(configs.get_config("granite_moe_1b_a400m"),
+                              dtype="float32", moe_routing=route,
+                              capacity_factor=capacity_factor)
+    return cfg, common.materialize(moe.init_moe(cfg), 3, "moe")
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.25])
+@pytest.mark.parametrize("route", ["local", "global"])
+def test_moe_layer_on_card_matches_cpu(cuda, route, capacity_factor):
+    """granite's MoE layer in float32 on 8 x 32 tokens (the prefill's
+    shape; at capacity factor 0.25 entries drop): the card picks the CPU's
+    experts, its output lies within float32 sum-order error of the CPU's,
+    and two calls give the same bits."""
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+
+    cfg, params = _granite_moe(route, capacity_factor)
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    x = torch.randn((8, 32, cfg.d_model),
+                    generator=torch.Generator().manual_seed(7))
+    want, want_aux = moe.moe_forward(params, x, cfg)
+    got, aux = moe.moe_forward(on_card, x.to(cuda), cfg)
+    again, _ = moe.moe_forward(on_card, x.to(cuda), cfg)
+    assert torch.equal(got, again)
+    ids = moe._router(params, x, cfg)[1]
+    assert torch.equal(moe._router(on_card, x.to(cuda), cfg)[1].cpu(), ids)
+    err = (got.cpu() - want).norm() / want.norm()
+    assert err < 1e-5, err
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=0)
+
+
+def test_moe_ties_on_card_take_the_lower_index(cuda):
+    """Equal router logits on the card (an all-zero row of x, and
+    duplicated router columns) pick experts in index order, as on the
+    CPU."""
+    from repro_torch.models import moe
+
+    cfg, params = _granite_moe("local")
+    router = params["router"].clone()
+    router[:, 9] = router[:, 4]
+    router[:, 17] = router[:, 4]
+    x = torch.randn((2, 16, cfg.d_model),
+                    generator=torch.Generator().manual_seed(8))
+    x[0, :3] = 0.0
+    got = moe._router({"router": router.to(cuda)}, x.to(cuda), cfg)[1].cpu()
+    want = moe._router({"router": router}, x, cfg)[1]
+    assert torch.equal(got, want)
+    assert got[0, :3].tolist() == [list(range(8))] * 3
+    probs = torch.tensor([[0.1, 0.3, 0.3, 0.1, 0.3]], device=cuda)
+    assert moe.top_k(probs, 4)[1].tolist() == [[1, 2, 4, 0]]
+
+
+def test_init_lm_on_card_bit_equal_to_cpu(cuda):
+    """One seed, the same params on the card as on the CPU (drawn on the
+    host, copied block by block), and a leaf of several blocks likewise."""
+    from repro_torch import configs
+    from repro_torch.models import common
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import flatten
+
+    cfg = configs.get_smoke("granite_moe_1b_a400m")
+    host, host_def = flatten(T.init_lm(cfg, seed=4, device="cpu"))
+    card, card_def = flatten(T.init_lm(cfg, seed=4, device=cuda))
+    assert host_def == card_def
+    for h, c in zip(host, card):
+        assert c.device.type == "cuda" and torch.equal(c.cpu(), h)
+    leaf = common.param((3 * common.BLOCK // 1000 + 7, 1000))
+    assert torch.equal(common.materialize(leaf, 4, "w", device=cuda).cpu(),
+                       common.materialize(leaf, 4, "w"))

@@ -130,4 +130,4 @@ def test_lm_append_matches_jax():
 
 def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
-        tconfigs.get_config("granite_moe_1b_a400m")
+        tconfigs.get_config("qwen2_vl_72b")
