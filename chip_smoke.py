@@ -44,8 +44,15 @@ Phases, each fatal on failure (no phase catches its own error):
      and at the dense family's serving shapes: codeqwen1_5_7b (MHA, D
      128), chatglm3_6b (32 heads over 2) and gemma3_4b (D 256, 8 heads
      over 4; its 1024-slot ring, a 1280-slot global cache, and a
-     1152-token prefill with window 1024 and without), and
-     granite_moe_1b_a400m's (16 heads over 8, D 64).
+     1152-token prefill with window 1024 and without),
+     granite_moe_1b_a400m's (16 heads over 8, D 64), whisper_large_v3's
+     (MHA, 20 heads, D 64: the encoder over 1500 frames, non-causal with a
+     ragged last kv tile, the cross-attention over them at Sq 32 and at a
+     decode step's Sq 1, the decoder's self-attention and its decode
+     cache) and qwen2_vl_72b's (64 heads over 8, D 128: a 288-token
+     prefill and a 320-slot decode cache); and the flash kernel's ragged
+     last kv tile at the end of a batch row: a next row of 1e30 values
+     leaves the row's output bit-equal to the row run alone.
      The RG-LRU kernel at ``launch.serve``'s prefill, the 2304-token
      prompt, ``tests/test_kernels.py``'s shapes, with h0, one step, a
      ragged width, a slow decay (a_t near 1), a large h0 and sequences
@@ -86,11 +93,19 @@ Phases, each fatal on failure (no phase catches its own error):
      of llama4_maverick_400b_a17b's smoke config (the same prefill and
      decode steps, in bf16 and in float32), with the expert picks that
      differ between card and CPU per layer and the prefill's capacity
-     drops printed; each limit lies between the sound readings and
-     a control's (TF32 products, attention without its masks, the RG-LRU
-     without its carry, the mLSTM without its forget-gate decay, RoPE over
-     chatglm3's whole head, gemma3 without QK-norm, experts taken from the
-     lowest router probabilities), and the control must fail it;
+     drops printed; over ``FRONTEND_SEEDS``, the logits of
+     whisper_large_v3 at full width cut to 2 encoder + 2 decoder layers
+     (B 2 with 1500 audio frames, a prefill of 32 and 4 decode steps) and
+     of qwen2_vl_72b at full width cut to 2 layers (B 1, a 288-token
+     prompt with 256 image patches under image M-RoPE ids, 4 decode
+     steps), in bf16 and in float32, and ``apply_mrope`` itself at
+     qwen2-vl's q and k shapes; each limit lies between the sound readings
+     and a control's (TF32 products, attention without its masks, the
+     RG-LRU without its carry, the mLSTM without its forget-gate decay,
+     RoPE over chatglm3's whole head, gemma3 without QK-norm, experts
+     taken from the lowest router probabilities, whisper's encoder run
+     causal, qwen2-vl's prompt under t = h = w ids, M-RoPE's sections
+     permuted), and the control must fail it;
   5. path: ``repro_torch.launch.migrate.main`` with its defaults (the
      paper consumer at full width, max_seq 2048), with ``--precopy``,
      with ``--precopy --compression int8`` and with ``--workload serving
@@ -128,8 +143,18 @@ Phases, each fatal on failure (no phase catches its own error):
      granite_moe_1b_a400m`` with its defaults at full width and depth (24
      flash launches a prefill, 24 decode launches a step) and its cache
      after prefill (50,429,952 bytes: K/V and pos) through the registry
-     and decoded 8 steps bit-equal; every path's ``init_lm`` seconds and
-     params a second printed; and a paper-consumer
+     and decoded 8 steps bit-equal; ``launch.serve --arch
+     whisper_large_v3`` with its defaults at full width and depth (96
+     flash launches a prefill: 32 encoder, 32 self, 32 cross; a decode
+     step 32 decode and 32 flash launches, the cross-attention recomputed
+     over the 1500 frames, all on the wgmma route) and its cache after
+     prefill (198,623,232 bytes: K/V, pos and ``enc_out``) through the
+     registry and decoded 8 steps bit-equal; qwen2_vl_72b at full width
+     cut to 4 of its 80 layers (``serve-qwen2vl-4l``, through the step
+     functions: 8 x 288 with 256 image patches each, 32 decode steps; 4
+     flash launches a prefill and 4 decode launches a step); every
+     path's ``init_lm`` seconds and params a second printed; and a
+     paper-consumer
      ``TrainerWorker`` at full width
      migrated through ``ms2m_statefulset`` and through ``ms2m_precopy``
      with int8 deltas (``benchmarks/delta_precopy.py``'s trainer
@@ -233,9 +258,14 @@ def graph_ms(fn, reps: int = 50, graphs: int = 5) -> float:
     return start.elapsed_time(end) / (graphs * reps)
 
 
-def device_entries(fn, calls: int = 20) -> list:
+def device_entries(fn, calls: int = 20, retry: bool = True) -> list:
     """Every device entry of ``calls`` eager ``fn()`` calls under
-    ``torch.profiler``: (name, count per call, device us per call)."""
+    ``torch.profiler``: (name, count per call, device us per call).
+
+    Every call makes the same entries, so an entry counted a fractional
+    number of times a call is the profiler losing events (seen now and
+    then on the H100): then the calls are profiled once more, and that
+    profile stands."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -251,6 +281,10 @@ def device_entries(fn, calls: int = 20) -> list:
             us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
             rows.append((e.key, e.count / calls, us / calls))
+    if retry and any(c != int(c) for _, c, _ in rows):
+        print(f"[kernels] the profiler lost events ({rows}): profiling "
+              "again")
+        return device_entries(fn, calls, retry=False)
     return rows
 
 
@@ -363,7 +397,8 @@ def decode_inputs(gen, B, S, H, Hkv, D, dtype, ring: bool, window: int = 0):
 
 
 DECODE_TIMED = ("main", "smollm-serve", "rg-serve", "rg-ring", "cq-serve",
-                "glm-serve", "g3-serve", "g3-ring", "gm-serve")
+                "glm-serve", "g3-serve", "g3-ring", "gm-serve", "wh-serve",
+                "qvl-serve")
 
 
 def kernel_phase():
@@ -412,6 +447,12 @@ def kernel_phase():
          DECODE_TOL_BF16),
         # granite_moe_1b_a400m's launch.serve shape (16 heads over 8, D 64)
         ("gm-serve", 8, 128, 16, 8, 64, torch.bfloat16, False, 0,
+         DECODE_TOL_BF16),
+        # whisper_large_v3's launch.serve shape (MHA, 20 heads, D 64) and
+        # serve-qwen2vl-4l's (64 heads over 8, D 128, 320 slots)
+        ("wh-serve", 8, 128, 20, 20, 64, torch.bfloat16, False, 0,
+         DECODE_TOL_BF16),
+        ("qvl-serve", 8, 320, 64, 8, 128, torch.bfloat16, False, 0,
          DECODE_TOL_BF16),
     ]
     main_err = None
@@ -485,6 +526,7 @@ def kernel_phase():
     rows["fingerprint_lanes"] = fingerprint_kernel(gen)
     rows.update(codec_kernels())
     rows["flash_attention"] = flash_kernel(gen)
+    flash_ragged_isolation(gen)
     rows["rglru"] = rglru_kernel(gen)
     rows["slstm"] = slstm_kernel(gen)
     rows["mlstm"] = mlstm_kernel(gen)
@@ -503,8 +545,21 @@ FP_CASES = [  # (label, C, R): each [C, R, 128] words
     ("int8-kv", 32, 8192),
     ("int8-scales", 1, 4096),
     ("int8-pos", 1, 256),
+    # the other leaf shapes of train-xl's image pushes (xlstm_350m's params
+    # and AdamW moments: each push fingerprints 63 leaves of 12 chunks, 63
+    # of 6, 3 of 50, 15 of 3, 12 of [1,6144], 21 of [1,384], 36 of [1,24],
+    # 21 of [1,12], 3 of [1,8] and 22 of [1,1])
+    ("xl-12ch", 12, 8192),
+    ("xl-6ch", 6, 8192),
+    ("xl-3ch", 3, 8192),
+    ("xl-6144", 1, 6144),
+    ("xl-384", 1, 384),
+    ("xl-24", 1, 24),
+    ("xl-12", 1, 12),
+    ("xl-1", 1, 1),
 ]
-FP_TIMED = ("fold", "small-leaf", "leaf-210MB", "int8-kv")
+FP_TIMED = ("fold", "small-leaf", "leaf-210MB", "int8-kv", "xl-12ch",
+            "xl-6ch", "xl-3ch", "xl-6144", "xl-384", "xl-24", "xl-12", "xl-1")
 
 
 def fingerprint_kernel(gen):
@@ -605,10 +660,22 @@ FLASH_CASES = [  # (label, B, Sq, Sk, H, Hkv, D, dtype, causal, window)
     ("g3-long-global", 2, 1152, 1152, 8, 4, 256, torch.bfloat16, True, 0),
     # granite_moe_1b_a400m's launch.serve prefill (16 heads over 8, D 64)
     ("gm-prefill", 8, 32, 32, 16, 8, 64, torch.bfloat16, True, 0),
+    # whisper_large_v3 at launch.serve's shapes (MHA, 20 heads, D 64): the
+    # encoder over 1500 frames (non-causal; 1500 = 23 * 64 + 28, a ragged
+    # last kv tile), the decoder's cross-attention over them in the
+    # prefill (Sq 32) and in every decode step (Sq 1), and the decoder's
+    # causal self-attention; serve-qwen2vl-4l's 288-token prefill (64
+    # heads over 8, D 128)
+    ("wh-encoder", 8, 1500, 1500, 20, 20, 64, torch.bfloat16, False, 0),
+    ("wh-cross", 8, 32, 1500, 20, 20, 64, torch.bfloat16, False, 0),
+    ("wh-cross-decode", 8, 1, 1500, 20, 20, 64, torch.bfloat16, False, 0),
+    ("wh-self", 8, 32, 32, 20, 20, 64, torch.bfloat16, True, 0),
+    ("qvl-prefill", 8, 288, 288, 64, 8, 128, torch.bfloat16, True, 0),
 ]
 FLASH_TIMED = ("smollm-train", "paper-train", "rg-prefill", "rg-long-prefill",
                "cq-prefill", "glm-prefill", "g3-prefill", "g3-long-prefill",
-               "gm-prefill")
+               "gm-prefill", "wh-encoder", "wh-cross", "wh-cross-decode",
+               "wh-self", "qvl-prefill")
 
 
 def flash_work(q, k, causal: bool, window: int):
@@ -725,6 +792,33 @@ def flash_kernel(gen):
                 bound_by=b_by, library_ms=library_ms)
     row["by_shape"] = by_shape
     return row
+
+
+def flash_ragged_isolation(gen) -> None:
+    """Non-causal over 1500 keys (a last kv tile of 28 keys, whose box runs
+    past the batch row's end): batch row 1's V holds 1e30, and batch row
+    0's output at Sq 32 and Sq 1 must be finite and bit-equal to row 0 run
+    alone (masked keys add exactly 0, nothing of row 1 is read)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    for Sq in (32, 1):
+        q = torch.randn((2, Sq, 20, 64), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        k, v = (torch.randn((2, 1500, 20, 64), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        v[1] = 1e30
+        got = fa.flash_attention(q, k, v, causal=False)
+        alone = fa.flash_attention(q[:1].contiguous(), k[:1].contiguous(),
+                                   v[:1].contiguous(), causal=False)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()),
+              f"flash ragged tile Sq {Sq}: non-finite output")
+        check(torch.equal(got[:1], alone), f"flash ragged tile Sq {Sq}: "
+              "batch row 0 moves with batch row 1's values")
+        print(f"[kernels] flash_attention ragged tile q[2,{Sq},20,64] over "
+              f"k[2,1500,20,64], row 1's V at 1e30: row 0 finite and "
+              f"bit-equal to row 0 alone")
 
 
 RGLRU_CASES = [  # (label, B, S, W, dtype, h0: None, "zeros" or "random")
@@ -1969,7 +2063,8 @@ def rg_serve_paths(paths) -> None:
             captured.clear()
 
 
-def ms2m_state(label, cfg, state, needs, image_bytes=None) -> dict:
+def ms2m_state(label, cfg, state, needs, image_bytes=None,
+               flash_route=None) -> dict:
     """A serving cache right after a prefill, pushed through the port's
     ``Registry`` (its fingerprints taken on the card) and pulled into a
     fresh cache; 8 greedy decode steps from each must give bit-equal
@@ -1978,7 +2073,8 @@ def ms2m_state(label, cfg, state, needs, image_bytes=None) -> dict:
     returns (params, logits, cache).  -> launches.  Prints the image's
     bytes beside those of a KV cache of every layer at the same batch and
     length (the O(1)-state case); ``image_bytes``, where given, is the
-    size the image must have."""
+    size the image must have; ``flash_route``, where given, the route
+    every flash launch must take."""
     from repro_torch.checkpoint.registry import Registry
     from repro_torch.convert import to_tensor
     from repro_torch.kernels import build
@@ -2024,7 +2120,8 @@ def ms2m_state(label, cfg, state, needs, image_bytes=None) -> dict:
             outs.append((torch.cat(toks, 1), torch.cat(lgs, 1), c))
         return report, pulled, outs, B
 
-    launches, (report, pulled, outs, B), wall = run_path(label, run, needs)
+    launches, (report, pulled, outs, B), wall = run_path(label, run, needs,
+                                                         flash_route)
     (ta, la, ca), (tb, lb, cb) = outs
     check(torch.equal(ta, tb) and torch.equal(la, lb),
           "ms2m: decoding from the pulled cache differs from the source")
@@ -2413,13 +2510,14 @@ def timed_init(times):
 
 
 def serve_path(paths, label: str, arch: str, extra, B: int, prompt: int,
-               steps: int, captured=None):
+               steps: int, captured=None, prefill=None, step=None):
     """``launch.serve --arch <arch>`` at full width and depth, with
-    ``extra`` flags: rc 0, the reference's three lines, ``flash_attention``
-    once per layer a prefill and ``decode_attention`` once per layer a
-    decode step, every flash launch on the wgmma route, and one
-    ``init_lm`` (its seconds and rate printed).  ``captured``, where
-    given, takes the prefill (``capturing_prefill``).  -> the config."""
+    ``extra`` flags: rc 0, the reference's three lines, the launches of
+    ``prefill`` a prefill and of ``step`` a decode step (by default
+    ``flash_attention`` once per layer and ``decode_attention`` once per
+    layer), every flash launch on the wgmma route, and one ``init_lm``
+    (its seconds and rate printed).  ``captured``, where given, takes the
+    prefill (``capturing_prefill``).  -> the config."""
     from repro_torch import configs
     from repro_torch.launch import serve
 
@@ -2440,16 +2538,15 @@ def serve_path(paths, label: str, arch: str, extra, B: int, prompt: int,
             ("sample", "[serve] sample continuation (request 0): ")):
         check(line in text, f"{label}: no line {line!r}")
         lines[key] = text.split(line)[1].split("ms")[0]
-    want = dict(flash_attention=cfg.num_layers,
-                decode_attention=steps * cfg.num_layers)
-    check(all(launches[k] == want.get(k, 0) for k in launches),
-          f"{label}: launches {launches}, want {want} (one prefill, "
-          f"{steps} decode steps)")
+    prefill = prefill or dict(flash_attention=cfg.num_layers)
+    step = step or dict(decode_attention=cfg.num_layers)
+    want = {k: prefill.get(k, 0) + steps * step.get(k, 0) for k in launches}
+    check(launches == want, f"{label}: launches {launches}, want {want} "
+          f"(one prefill, {steps} decode steps)")
     check(len(inits) == 1, f"{label}: {len(inits)} init_lm calls")
     (init_s, n), = inits
     print(f"[path] {label}: rc={rc} {cfg.param_count()} params; per "
-          f"prefill flash_attention={cfg.num_layers}, per decode step "
-          f"decode_attention={cfg.num_layers}; init {init_s:.3f} s ({n} "
+          f"prefill {prefill}, per decode step {step}; init {init_s:.3f} s ({n} "
           f"params drawn and copied, {n / init_s / 1e6:.0f} M params/s), "
           f"prefill {lines['prefill']} ms, wall per decode step "
           f"{float(lines['decode']) / steps:.3f} ms, path wall {wall:.3f} s")
@@ -2727,6 +2824,357 @@ def moe_serve_paths(paths) -> None:
     torch.cuda.empty_cache()
 
 
+# The encoder-decoder and M-RoPE slice, card against CPU.  whisper_large_v3
+# at full width (d_model 1280, 20 heads of 64, vocab 51,866) cut to 2
+# encoder + 2 decoder layers, B 2 with its 1500 audio frames kept: the
+# logits of a prefill of 32 tokens and of 4 decode steps (each decode step
+# recomputes the cross-attention over the 1500 frames); the control runs
+# the encoder causal, what a kernel that ignored causal=False would give.
+# qwen2_vl_72b at full width (d_model 8192, 64 heads over 8 of 128, d_ff
+# 29568, vocab 152,064, untied) cut to 2 of its 80 layers, B 1: a prefill
+# of 288 tokens (256 image patches from token 1) under image ids
+# (``image_ids``: within the patch span h and w walk a 16 x 16 grid) and
+# 4 decode steps; the control feeds the same input t = h = w ids.  Beside
+# it, ``apply_mrope`` itself card against CPU at the layer's q and k
+# shapes under the image ids (float32, max abs), the sections permuted
+# (24, 24, 16) as its control.  Worst over FRONTEND_SEEDS, bf16 and
+# float32; each limit lies between the sound readings and the control's
+# (PERF.md, the whisper and qwen2-vl finding: on an H100 over seeds 0-1,
+# worst sound /
+# least control, prefill and decode: whisper bf16 4.9e-3 and 5.2e-3 /
+# 0.312 and 0.325, float32 9.8e-7 and 7.4e-7 / 0.312 and 0.325; qwen2-vl
+# bf16 8.4e-3 and 3.4e-3 / 0.311 and 2.54e-2, float32 4.0e-6 and 1.1e-6
+# / 0.311 and 2.47e-2).  The control's ids differ only at the 256 image
+# positions, and a decode token's own ids are t = h = w in both runs, so
+# it moves qwen2-vl's decode logits less than its prefill's (only through
+# the cached keys of the image span): the bf16 decode limit has 2.9x room
+# above the sound readings and 2.5x below the control.
+FRONTEND_SEEDS = (0, 1)
+WHISPER_LIMITS = {"bfloat16": dict(prefill=5e-2, decode=5e-2),
+                  "float32": dict(prefill=2e-4, decode=2e-4)}
+QVL_LIMITS = {"bfloat16": dict(prefill=5e-2, decode=1e-2),
+              "float32": dict(prefill=2e-4, decode=2e-4)}
+# apply_mrope, float32 max abs: an ulp of a frequency (CUDA's powf against
+# the host's) moves an angle of up to 288 rad by up to 2e-5 and an output
+# of |x| ~ 4 by up to 1e-4; a permuted section moves it by O(1)
+MROPE_LIMIT = 1e-3
+QVL_PATCH_SIDE = 16  # 256 patches: a 16 x 16 grid
+# serve-qwen2vl-4l: qwen2_vl_72b at full width cut to 4 of its 80 layers
+# (6.00 B params, 24 GB in float32; all 80 are 72.7 B, 291 GB, which fit
+# no card), driven through the port's step functions, since launch.serve
+# has no depth flag
+QVL_LAYERS = 4
+
+
+def image_ids(B: int, S: int, P: int, side: int):
+    """[3,B,S] int32 M-RoPE ids of a prompt with ``P`` image patches from
+    token 1: t = 0..S-1; patch j has h = 1 + j // side and w = 1 + j %
+    side; h = w = t outside the patch span."""
+    t = torch.arange(S, dtype=torch.int32)
+    h, w = t.clone(), t.clone()
+    j = torch.arange(P, dtype=torch.int32)
+    h[1:P + 1] = 1 + j // side
+    w[1:P + 1] = 1 + j % side
+    return torch.stack([t, h, w])[:, None].expand(3, B, S).contiguous()
+
+
+def whisper_config(dtype: str = "bfloat16"):
+    """whisper_large_v3 at full width cut to 2 encoder + 2 decoder layers."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config("whisper_large_v3"),
+                               dtype=dtype, num_layers=2,
+                               num_encoder_layers=2)
+
+
+def qvl_config(dtype: str = "bfloat16", layers: int = 2):
+    """qwen2_vl_72b at full width cut to ``layers`` layers."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config("qwen2_vl_72b"),
+                               dtype=dtype, num_layers=layers)
+
+
+def whisper_run(cfg, seed: int, params, device: str):
+    """``lm_prefill`` of 2 prompts of 32 tokens with 1500 audio frames each
+    into a max_seq-128 cache, then 4 teacher-forced decode steps.
+    -> (prefill, decode logits), float32."""
+    import numpy as np
+
+    from repro_torch.convert import to_tensor
+    from repro_torch.models import transformer as T
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (2, 36)).astype(np.int32)
+    frames = rng.normal(0, 0.02, (2, cfg.encoder_seq, cfg.d_model)).astype(
+        np.float32)
+    with torch.no_grad():
+        cache = T.init_cache(cfg, 2, 128, device=device)
+        pre, cache = T.lm_prefill(
+            params, {"tokens": to_tensor(toks[:, :32], device),
+                     "frames": to_tensor(frames, device)}, cfg, cache)
+        dec = []
+        for t in range(32, 36):
+            pos = torch.full((2, 1), t, dtype=torch.int32, device=device)
+            lg, cache = T.lm_decode_step(
+                params, to_tensor(toks[:, t:t + 1], device), pos, cfg, cache)
+            dec.append(lg)
+    return pre.float(), torch.cat(dec, 1).float()
+
+
+@contextlib.contextmanager
+def causal_encoder():
+    """The control of the whisper check: ``transformer._run_groups`` with
+    ``causal=True`` forced, so the encoder runs causal."""
+    from repro_torch.models import transformer as T
+
+    plain = T._run_groups
+
+    def run_groups(*args, **kwargs):
+        return plain(*args, **{**kwargs, "causal": True})
+
+    T._run_groups = run_groups
+    try:
+        yield
+    finally:
+        T._run_groups = plain
+
+
+def qvl_run(cfg, seed: int, params, device: str, flat_ids: bool = False):
+    """``lm_prefill`` of one 288-token prompt (256 image patches from token
+    1) under ``image_ids`` into a max_seq-320 cache, then 4 teacher-forced
+    decode steps with [3,1,1] ids; ``flat_ids`` gives every token t = h =
+    w (the control).  -> (prefill, decode logits), float32."""
+    import numpy as np
+
+    from repro_torch.convert import to_tensor
+    from repro_torch.models import transformer as T
+
+    S, P = 288, cfg.num_patches
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (1, S + 4)).astype(np.int32)
+    patches = rng.normal(0, 0.02, (1, P, cfg.d_model)).astype(np.float32)
+    ids = image_ids(1, S, P, QVL_PATCH_SIDE)
+    if flat_ids:
+        ids = ids[:1].expand(3, 1, S).contiguous()
+    with torch.no_grad():
+        cache = T.init_cache(cfg, 1, 320, device=device)
+        pre, cache = T.lm_prefill(
+            params, {"tokens": to_tensor(toks[:, :S], device),
+                     "patch_embeds": to_tensor(patches, device),
+                     "positions": ids.to(device)}, cfg, cache)
+        dec = []
+        for t in range(S, S + 4):
+            pos = torch.full((3, 1, 1), t, dtype=torch.int32, device=device)
+            lg, cache = T.lm_decode_step(
+                params, to_tensor(toks[:, t:t + 1], device), pos, cfg, cache)
+            dec.append(lg)
+    return pre.float(), torch.cat(dec, 1).float()
+
+
+def frontend_model_phase() -> None:
+    """Card against CPU, over ``FRONTEND_SEEDS`` and in bf16 and float32:
+    whisper's logits (``whisper_run``; control ``causal_encoder``) and
+    qwen2-vl's (``qvl_run``; control ``flat_ids``), each limit holding for
+    every seed and failing for the control at every seed, with the flash
+    and decode launches of each card run checked; then ``apply_mrope``
+    card against CPU (``MROPE_LIMIT``)."""
+    runs = (("whisper_large_v3", whisper_config, whisper_run,
+             WHISPER_LIMITS, causal_encoder,
+             # a prefill: 2 encoder + 2 self + 2 cross; a decode step: 2
+             # cross (flash, Sq 1) and 2 self (decode)
+             dict(flash_attention=6 + 4 * 2, decode_attention=4 * 2)),
+            ("qwen2_vl_72b", qvl_config, qvl_run, QVL_LIMITS, None,
+             dict(flash_attention=2, decode_attention=4 * 2)))
+    for arch, make_cfg, run, limits, control_ctx, want in runs:
+        cfg = make_cfg()
+        sound = {dtype: [] for dtype in limits}
+        ctl = {dtype: [] for dtype in limits}
+        for seed in FRONTEND_SEEDS:
+            params, on_card = host_and_card(cfg, seed, arch)
+            for dtype in limits:
+                t0 = time.perf_counter()
+                host = run(make_cfg(dtype), seed, params, "cpu")
+                t_host = time.perf_counter() - t0
+                for control, out in ((False, sound), (True, ctl)):
+                    reset_counts()
+                    if control_ctx is None:
+                        got = run(make_cfg(dtype), seed, on_card, "cuda",
+                                  flat_ids=control)
+                    else:
+                        with (control_ctx() if control
+                              else contextlib.nullcontext()):
+                            got = run(make_cfg(dtype), seed, on_card, "cuda")
+                    n = read_counts()
+                    check({k: n[k] for k in want} == want,
+                          f"{arch} check: launches {n}, want {want}")
+                    check(all(bool(torch.isfinite(g).all()) for g in got),
+                          f"{arch} logits on the card not finite")
+                    out[dtype].append({name: _rel_norm(g, h) for name, g, h
+                                       in zip(("prefill", "decode"), got,
+                                              host)})
+                    label = "control" if control else "card vs CPU"
+                    print(f"[model] {arch} {cfg.num_layers} layers {dtype}, "
+                          f"{label}, seed {seed}: " + " ".join(
+                              f"{k}={v:.3e}" for k, v in
+                              out[dtype][-1].items())
+                          + (f" (CPU run {t_host:.1f} s)" if not control
+                             else ""))
+            del params, on_card
+        check_limits(arch, limits, sound, ctl)
+    mrope_check()
+
+
+def mrope_check() -> None:
+    """``apply_mrope`` on the card against the CPU at qwen2-vl's layer
+    shapes (q [1,288,64,128], k [1,288,8,128], float32) under
+    ``image_ids``: the largest difference within ``MROPE_LIMIT``, and the
+    sections permuted (24, 24, 16) on the card outside it."""
+    from repro_torch.models import common
+
+    cfg = qvl_config()
+    gen = torch.Generator().manual_seed(0)
+    ids = image_ids(1, 288, cfg.num_patches, QVL_PATCH_SIDE)
+    for name, H in (("q", cfg.num_heads), ("k", cfg.num_kv_heads)):
+        x = torch.randn((1, 288, H, cfg.resolved_head_dim), generator=gen)
+        want = common.apply_mrope(x, ids, cfg.mrope_sections, cfg.rope_theta)
+        got, permuted = (
+            common.apply_mrope(x.cuda(), ids.cuda(), secs,
+                               cfg.rope_theta).cpu()
+            for secs in (cfg.mrope_sections, (24, 24, 16)))
+        err = float((got - want).abs().max())
+        ctl = float((permuted - want).abs().max())
+        print(f"[model] apply_mrope {name} {list(x.shape)} card vs CPU: "
+              f"max_abs={err:.3e}, limit {MROPE_LIMIT:.1e}, control "
+              f"(sections (24, 24, 16)) {ctl:.3e}")
+        check(err <= MROPE_LIMIT, f"apply_mrope {name}: card disagrees with "
+              f"the CPU ({err:.3e})")
+        check(ctl > MROPE_LIMIT, f"apply_mrope {name}: the control passes "
+              f"({ctl:.3e})")
+
+
+def whisper_serve_paths(paths) -> None:
+    """``launch.serve --arch whisper_large_v3`` at full width and depth
+    with the reference's defaults (``serve_path``: 8 x 32 with 1500 audio
+    frames each, 32 decode steps, max_seq 128; a prefill launches flash 96
+    times: 32 encoder, 32 self, 32 cross layers; a decode step 32 decode
+    and 32 flash launches, the cross-attention over the 1500 frames
+    recomputed in every decoder layer, as in the reference), then its
+    cache after prefill through the registry (``serve-whisper-ms2m``: K
+    and V of 32 layers x 8 x 128 slots x 20 heads x 64 in bf16,
+    167,772,160 bytes, pos 131,072 and ``enc_out`` 8 x 1500 x 1280 in
+    bf16, 30,720,000), 8 decode steps from the pulled copy bit-equal to
+    the source's."""
+    captured = {}
+    L = 32
+    cfg = serve_path(paths, "serve-whisper", "whisper_large_v3", [], 8, 32,
+                     32, captured, prefill=dict(flash_attention=3 * L),
+                     step=dict(flash_attention=L, decode_attention=L))
+    check(cfg.num_layers == cfg.num_encoder_layers == L,
+          f"whisper: {cfg.num_layers} + {cfg.num_encoder_layers} layers")
+    kv = 2 * L * 8 * 128 * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    pos = L * 8 * 128 * 4
+    enc = 8 * cfg.encoder_seq * cfg.d_model * 2
+    check(kv + pos + enc == 198_623_232, f"whisper: K/V {kv}, pos {pos}, "
+          f"enc_out {enc} bytes")
+    launches = ms2m_state("serve-whisper-ms2m", cfg, captured,
+                          ("fingerprint_lanes", "decode_attention",
+                           "flash_attention"), kv + pos + enc, "wgmma")
+    check(launches["decode_attention"] == 16 * L
+          and launches["flash_attention"] == 16 * L,
+          f"serve-whisper-ms2m: launches {launches}, want 16 decode steps "
+          "(8 from the source, 8 from the pulled copy) of 32 decode and 32 "
+          "flash (cross) launches, and no prefill")
+    paths["serve-whisper-ms2m"] = launches
+    captured.clear()
+    torch.cuda.empty_cache()
+
+
+def qvl_serve_path(paths) -> None:
+    """qwen2_vl_72b at full width cut to ``QVL_LAYERS`` layers through the
+    port's ``build_prefill_step`` / ``build_decode_step``: B 8, a 288-token
+    prompt (256 image patches from token 1, then 31 text tokens) under
+    ``image_ids`` into a max_seq-320 cache, 32 greedy decode steps with
+    [3,B,1] ids; 4 flash launches a prefill (wgmma) and 4 decode launches
+    a step, finite logits, init, prefill and decode step times printed."""
+    import numpy as np
+
+    from repro_torch.models import transformer as T
+    from repro_torch.train import step as steplib
+    from repro_torch.tree import leaves
+
+    cfg = qvl_config("bfloat16", QVL_LAYERS)
+    B, S, steps, max_seq = 8, 288, 32, 320
+    P = cfg.num_patches
+    label = "serve-qwen2vl-4l"
+
+    def run():
+        t0 = time.perf_counter()
+        params = T.init_lm(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rng = np.random.default_rng(0)
+        batch = {
+            "tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda(),
+            "patch_embeds": torch.from_numpy(rng.normal(
+                0, 0.02, (B, P, cfg.d_model)).astype(np.float32)).cuda(),
+            "positions": image_ids(B, S, P, QVL_PATCH_SIDE).cuda()}
+        prefill = steplib.build_prefill_step(cfg)
+        decode = steplib.build_decode_step(cfg)
+        cache = T.init_cache(cfg, B, max_seq, device="cuda")
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, cache, batch)
+            torch.cuda.synchronize()
+            t_prefill = time.perf_counter() - t0
+            after_prefill = read_counts()
+            finite = bool(torch.isfinite(logits).all())
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            pos = torch.full((3, B, 1), S, dtype=torch.int32, device="cuda")
+            out = [tok]
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                logits, cache = decode(params, cache, tok, pos)
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+                pos = pos + 1
+                out.append(tok)
+            torch.cuda.synchronize()
+            t_decode = time.perf_counter() - t0
+            finite &= bool(torch.isfinite(logits).all())
+        n = sum(t.numel() for t in leaves(params))
+        del params, cache, logits
+        return (init_s, n, t_prefill, t_decode, after_prefill, finite,
+                torch.cat(out, 1)[0, :16].tolist())
+
+    launches, (init_s, n, t_prefill, t_decode, after_prefill, finite,
+               sample), wall = run_path(
+        label, run, ("flash_attention", "decode_attention"), "wgmma")
+    paths[label] = launches
+    L = QVL_LAYERS
+    want_prefill = dict(flash_attention=L, decode_attention=0)
+    check({k: after_prefill[k] for k in want_prefill} == want_prefill,
+          f"{label}: prefill launches {after_prefill}, want {want_prefill}")
+    want = {k: 0 for k in launches}
+    want.update(flash_attention=L, decode_attention=steps * L)
+    check(launches == want, f"{label}: launches {launches}, want {want}")
+    check(finite, f"{label}: logits not finite")
+    print(f"[path] {label}: {cfg.dtype} compute, {L} of qwen2_vl_72b's 80 "
+          f"layers (all 80 are 72.7 B params, 291 GB in float32, and fit "
+          f"no card): {cfg.param_count()} params; per prefill flash="
+          f"{L}, per decode step decode_attention={L}; init {init_s:.3f} s "
+          f"({n} params drawn and copied, {n / init_s / 1e6:.0f} M "
+          f"params/s), prefill {S} tokens x {B} requests "
+          f"{t_prefill * 1e3:.0f} ms, wall per decode step "
+          f"{t_decode / steps * 1e3:.3f} ms, path wall {wall:.3f} s; "
+          f"sample continuation (request 0) {sample}")
+    torch.cuda.empty_cache()
+
+
 def trainer_migration_paths(paths) -> None:
     """A paper-consumer ``TrainerWorker`` at full width migrated through
     ``ms2m_statefulset`` and through ``ms2m_precopy`` with int8 deltas,
@@ -2790,7 +3238,8 @@ def main() -> int:
     timed(build_phase)
     rows = timed(kernel_phase)
     for phase in (model_phase, train_model_phase, rg_model_phase,
-                  xl_model_phase, dense_model_phase, moe_model_phase):
+                  xl_model_phase, dense_model_phase, moe_model_phase,
+                  frontend_model_phase):
         timed(phase)
     fold = ("decode_attention", "fingerprint_lanes")
     paths = {}
@@ -2804,7 +3253,8 @@ def main() -> int:
              ("decode_attention", "xor_fp_lanes", "int8_fp_lanes"))):
         paths[label] = path_phase(argv, label, needs)
     for phase in (train_paths, rg_serve_paths, xl_paths, dense_serve_paths,
-                  moe_serve_paths, trainer_migration_paths):
+                  moe_serve_paths, whisper_serve_paths, qvl_serve_path,
+                  trainer_migration_paths):
         timed(phase, paths)
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in paths.values())

@@ -9,9 +9,13 @@ RoPE over 2 kv heads; served), ``granite_moe_1b_a400m`` and
 ``llama4_maverick_400b_a17b`` (MoE FFNs: 32 experts top-8 in every layer;
 128 experts top-1 with a shared expert, interleaved with dense layers;
 granite served at full width, llama4 at its smoke size),
-``recurrentgemma_2b`` (the RG-LRU + local-attention hybrid, served) and
-``xlstm_350m`` (mLSTM + sLSTM blocks, trained and served); every other
-architecture name raises until its model family is ported.
+``recurrentgemma_2b`` (the RG-LRU + local-attention hybrid, served),
+``xlstm_350m`` (mLSTM + sLSTM blocks, trained and served),
+``whisper_large_v3`` (the encoder-decoder: a bidirectional encoder over
+stub audio frames, cross-attention in every decoder layer; served at full
+width and depth) and ``qwen2_vl_72b`` (M-RoPE over [3,B,S] ids and the
+stub image-patch frontend; its 72.7 B params fit no card, so it is served
+at full width cut in depth).  Every architecture of ``ARCHS`` is ported.
 """
 from __future__ import annotations
 
@@ -35,17 +39,14 @@ ARCHS: List[str] = [
 ]
 PORTED = ("paper_consumer", "smollm_360m", "codeqwen1_5_7b", "gemma3_4b",
           "chatglm3_6b", "granite_moe_1b_a400m", "llama4_maverick_400b_a17b",
-          "recurrentgemma_2b", "xlstm_350m")
+          "recurrentgemma_2b", "xlstm_350m", "whisper_large_v3",
+          "qwen2_vl_72b")
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 
 
 def _module(name: str):
     name = _ALIASES.get(name, name)
-    if name in ARCHS and name not in PORTED:
-        raise NotImplementedError(
-            f"config {name!r} is not ported yet to repro_torch "
-            f"(ported: {PORTED})")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -12,8 +12,16 @@ take fresh-state sequences only (training).  The MoE FFN of
 granite_moe_1b_a400m and llama4_maverick_400b_a17b is sorts, gathers and
 batched einsums on either device (the reference has no kernel for it);
 llama4's full config (397.7 B params) fits no card, so run its
-``--smoke`` config.  Frontend models (audio frames, image patches) are
-not ported yet.
+``--smoke`` config.  The frontend stubs are drawn as the reference draws
+them, from the prompt's generator right after the tokens: whisper_large_v3's
+audio frames [B, encoder_seq, d_model] (its encoder, and every decoder
+layer's cross-attention over the encoder's output in the prefill and in
+each decode step, run through the flash kernel on the card) and
+qwen2_vl_72b's image patches [B, num_patches, d_model], written from token
+1 of the prompt with M-RoPE ids t = h = w.  qwen2_vl_72b's 72.7 B params
+fit no card, so run its ``--smoke`` config (4 patches); the reference's
+CLI also fails for its full config at the default ``--prompt-len 32``,
+since 256 patches do not fit 32 tokens, and so does this one.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \
@@ -24,6 +32,9 @@ Usage:
       --arch granite_moe_1b_a400m
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch llama4_maverick_400b_a17b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_large_v3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_vl_72b \
+      --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -66,6 +77,14 @@ def main(argv=None) -> int:
     batch = {"tokens": torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (B, args.prompt_len)).astype(
             np.int32)).to(dev)}
+    if cfg.frontend == "audio_frames":
+        batch["frames"] = torch.from_numpy(rng.normal(
+            0, 0.02, (B, cfg.encoder_seq, cfg.d_model)).astype(
+                np.float32)).to(dev)
+    if cfg.frontend == "image_patches":
+        batch["patch_embeds"] = torch.from_numpy(rng.normal(
+            0, 0.02, (B, cfg.num_patches, cfg.d_model)).astype(
+                np.float32)).to(dev)
 
     prefill = steplib.build_prefill_step(cfg)
     decode = steplib.build_decode_step(cfg)

@@ -1,11 +1,13 @@
 """GQA attention block: params, RoPE dispatch and KV-cache management.
 
-Port of ``repro.models.attention``: full-sequence self-attention
-(``attn_forward``, train and prefill, through ``ops.attention``), prompt
-prefill into the cache (``prefill_into_cache``) and the decode paths
-(``attn_decode``, ``attn_append``) with a float or an int8 KV cache.
-The reference's sharding constraints have no counterpart here;
-cross-attention (``kv_x``) is not ported yet.
+Port of ``repro.models.attention``: full-sequence attention
+(``attn_forward``, train, prefill, the encoder and cross-attention over
+``kv_x``, through ``ops.attention``), prompt prefill into the cache
+(``prefill_into_cache``) and the decode paths (``attn_decode``,
+``attn_append``) with a float or an int8 KV cache.  Positions are [B,S],
+or [3,B,S] M-RoPE ids, whose temporal component (index 0) keys the cache
+slots, as in the reference.  The reference's sharding constraints have
+no counterpart here.
 
 The reference returns a new cache from every call (JAX arrays are
 immutable).  Here the prefill, decode and append paths write the new
@@ -56,12 +58,14 @@ def _project_qkv(params, x, kv_x, cfg):
 
 
 def _attend(params, x, positions, cfg, *, local: bool, causal: bool,
-            kv_positions=None):
-    """Self-attention of x [B,S,D] -> (output [B,S,D], k, v), k and v
-    after RoPE (what a prefill writes into the cache)."""
+            kv_x=None, kv_positions=None):
+    """Attention of x [B,S,D] over itself, or over ``kv_x`` [B,Skv,D]
+    (cross-attention: no RoPE) -> (output [B,S,D], k, v), k and v after
+    RoPE (what a prefill writes into the cache)."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(params, x, x, cfg)
-    if cfg.rope_kind != "none":
+    kv_x = x if kv_x is None else kv_x
+    q, k, v = _project_qkv(params, x, kv_x, cfg)
+    if kv_x is x and cfg.rope_kind != "none":
         q = common.rope_for(cfg, q, positions, local)
         k = common.rope_for(
             cfg, k, positions if kv_positions is None else kv_positions, local)
@@ -73,12 +77,9 @@ def _attend(params, x, positions, cfg, *, local: bool, causal: bool,
 
 def attn_forward(params, x, positions, cfg, *, local: bool = False,
                  causal: bool = True, kv_x=None, kv_positions=None):
-    """Full-sequence attention (train / prefill)."""
-    if kv_x is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_x) is not ported yet to repro_torch")
+    """Full-sequence attention (train / prefill / encoder / cross)."""
     return _attend(params, x, positions, cfg, local=local, causal=causal,
-                   kv_positions=kv_positions)[0]
+                   kv_x=kv_x, kv_positions=kv_positions)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -146,11 +147,13 @@ def prefill_into_cache(params, x, positions, cfg, cache, *, local: bool):
     """Run full attention over the prompt AND write its K/V/pos into the
     cache (in place).  A prompt of at least ``S_cache`` tokens keeps its
     last ``S_cache`` positions, rolled so that position p sits at slot
-    ``p % S_cache`` (the ring slot decode writes)."""
+    ``p % S_cache`` (the ring slot decode writes).  Slots are keyed by the
+    temporal component of [3,B,S] M-RoPE ids."""
     out, k, v = _attend(params, x, positions, cfg, local=local, causal=True)
+    pos1d = positions[0] if positions.dim() == 3 else positions
     S_cache = cache["k"].shape[1]
     S = x.shape[1]
-    entries = {**_cache_entries(cache, k, v), "pos": positions}
+    entries = {**_cache_entries(cache, k, v), "pos": pos1d}
     for name, a in entries.items():
         a = a.to(cache[name].dtype)
         if S >= S_cache:
@@ -188,7 +191,8 @@ def attn_append(params, x, positions, cfg, cache, *, local: bool):
 
 
 def attn_decode(params, x, positions, cfg, cache, *, local: bool):
-    """One-token decode.  x [B,1,D]; positions [B,1] absolute positions.
+    """One-token decode.  x [B,1,D]; positions [B,1] absolute positions,
+    or [3,B,1] M-RoPE ids (the temporal one keys the slot).
 
     Writes the token's K/V/pos slot into ``cache`` in place, then attends
     over the whole cache (so at least one slot is always valid)."""
@@ -198,7 +202,8 @@ def attn_decode(params, x, positions, cfg, cache, *, local: bool):
         q = common.rope_for(cfg, q, positions, local)
         k = common.rope_for(cfg, k, positions, local)
     S_cache = cache["k"].shape[1]
-    pos_scalar = positions[:, -1]
+    pos_scalar = (positions[:, -1] if positions.dim() == 2
+                  else positions[0, :, -1])
     slot = pos_scalar % S_cache  # ring for local layers
     b_idx = torch.arange(B, device=x.device)
     for name, a in _cache_entries(cache, k[:, 0], v[:, 0]).items():

@@ -160,7 +160,8 @@ def soft_cap(x, cap: float):
 
 
 # ---------------------------------------------------------------------------
-# rotary position embeddings (default and partial rope)
+# rotary position embeddings (default, partial and multimodal rope) and
+# sinusoidal positions
 # ---------------------------------------------------------------------------
 
 def _rope_angles(positions, dim: int, theta: float):
@@ -187,17 +188,62 @@ def apply_rope(x, positions, theta: float = 10_000.0, fraction: float = 1.0):
     return torch.cat([out.to(x.dtype), x_pass], dim=-1)
 
 
+def apply_mrope(x, positions_thw, sections: Tuple[int, int, int],
+                theta: float):
+    """Qwen2-VL multimodal RoPE.
+
+    x [B,S,H,D]; positions_thw [3,B,S] (temporal, height, width ids).  The
+    D/2 frequency slots are split into ``sections`` (t,h,w), rescaled to
+    D/2 with integer arithmetic (the last section takes the remainder);
+    each slot takes its angle from its section's position component,
+    chosen by a one-hot product in float32 (exact for integer ids below
+    2^24), as the reference does.  The whole head is rotated.  For
+    text tokens the three ids are equal: standard RoPE.
+    """
+    d = x.shape[-1]
+    half = d // 2
+    secs = np.array(sections, dtype=np.int64)
+    secs = (secs * half // secs.sum()).tolist()
+    secs[-1] = half - sum(secs[:-1])
+    dev = x.device
+    freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                          device=dev) / d))
+    comp = np.repeat(np.arange(3), secs)  # [half]: each slot's component
+    onehot = torch.from_numpy(np.eye(3, dtype=np.float32)[comp]).to(dev)
+    # pos_slot [B,S,half] = sum_c onehot[half,c] * positions[c,B,S], as
+    # products and sums of float32 tensors (no GEMM: TF32 cannot touch it)
+    pos_slot = (onehot.T[:, None, None, :]
+                * positions_thw.float()[..., None]).sum(0)
+    ang = pos_slot * freqs[None, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def rope_for(cfg, x, positions, local: bool):
-    """Dispatch on cfg.rope_kind (``default``, ``partial`` and ``none`` are
-    ported; ``mrope`` is not)."""
+    """Dispatch on cfg.rope_kind.  ``positions`` is [B,S], or [3,B,S] for
+    ``mrope`` (2-D ids are broadcast: t = h = w)."""
     if cfg.rope_kind == "none":
         return x
-    if cfg.rope_kind not in ("default", "partial"):
-        raise NotImplementedError(
-            f"rope_kind {cfg.rope_kind!r} is not ported yet to repro_torch")
+    if cfg.rope_kind == "mrope":
+        if positions.dim() == 2:
+            positions = positions[None].expand((3,) + tuple(positions.shape))
+        return apply_mrope(x, positions, cfg.mrope_sections, cfg.rope_theta)
     theta = cfg.rope_theta_local if local else cfg.rope_theta
     frac = cfg.rope_fraction if cfg.rope_kind == "partial" else 1.0
     return apply_rope(x, positions, theta, frac)
+
+
+def sinusoidal_positions(seq: int, dim: int):
+    """[seq, dim] float32: sin then cos of pos / 10000^(2i/dim), computed in
+    float64 numpy and rounded once, as the reference does."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    ang = pos / np.power(10_000.0, 2 * i / dim)
+    return torch.from_numpy(
+        np.concatenate([np.sin(ang), np.cos(ang)], axis=-1).astype(np.float32))
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,15 @@
-"""Decoder LM: dense attention, MoE, the RG-LRU hybrid and xLSTM.
+"""The LM of every architecture: dense attention, MoE, the RG-LRU hybrid,
+xLSTM, the encoder-decoder and the M-RoPE VLM backbone.
 
 Port of ``repro.models.transformer`` for patterns of attention, RG-LRU,
 mLSTM and sLSTM mixers with MLPs, MoE FFNs or none (paper_consumer,
 smollm_360m, the dense family, granite_moe_1b_a400m,
-llama4_maverick_400b_a17b, recurrentgemma_2b, xlstm_350m):
-training (``lm_forward``, ``lm_loss``) and serving (``init_cache``,
+llama4_maverick_400b_a17b, recurrentgemma_2b, xlstm_350m), with
+whisper_large_v3's encoder (stub audio frames plus sinusoidal positions,
+bidirectional), cross-attention in every decoder layer and learned
+decoder positions, and qwen2_vl_72b's stub image patches spliced in at
+token 1 through ``patch_adapter`` with [3,B,S] M-RoPE ids: training
+(``lm_forward``, ``lm_loss``) and serving (``init_cache``,
 ``lm_prefill``, ``lm_decode_step``, ``lm_append``).  The reference scans
 stacked per-group params with ``lax.scan``; here a Python loop walks the
 groups, indexing the same stacked tensors (so ``unroll`` changes
@@ -25,7 +30,10 @@ n, h, m)``: dicts and tuples as in the reference, so the flattened leaves
 line up with its cache) is copied into its group's slice of the stacked
 leaves; where a leaf's dtype differs (the ``conv`` leaf starts float32 and
 comes back in the activations' dtype, as in the reference), the stacked
-leaf is first replaced by one of the new dtype.
+leaf is first replaced by one of the new dtype.  An encoder-decoder's
+prefill writes the encoder's output into the cache's ``enc_out`` leaf;
+decode and append read it, and recompute the cross-attention K/V from it
+in every decoder layer, as the reference does.
 """
 from __future__ import annotations
 
@@ -65,37 +73,38 @@ _RECURRENT = {
         "slstm", xlstm.init_slstm_block, xlstm.init_slstm_state,
         xlstm.slstm_block_forward, xlstm.slstm_decode_step),
 }
-PORTED_MIXERS = MIXERS_WITH_KV + tuple(_RECURRENT)
-PORTED_FFNS = (BlockKind.MLP, BlockKind.MOE, BlockKind.NONE)
+MIXERS = MIXERS_WITH_KV + tuple(_RECURRENT)
+FFNS = (BlockKind.MLP, BlockKind.MOE, BlockKind.NONE)
+DEC_POSITIONS = 8192  # learned decoder positions (whisper), ids taken mod
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for the parts of a config this port does not run yet."""
+    """Raise for a block kind the model does not know."""
     for mixer, ffn in cfg.pattern:
-        if mixer not in PORTED_MIXERS or ffn not in PORTED_FFNS:
-            raise NotImplementedError(
-                f"{cfg.name}: block ({mixer.value}, {ffn.value}) is not "
-                "ported yet to repro_torch (attention, RG-LRU, mLSTM or "
-                "sLSTM, with an MLP, an MoE FFN or none)")
-    if cfg.is_encoder_decoder or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and modality frontends are not "
-            "ported yet to repro_torch")
+        if mixer not in MIXERS or ffn not in FFNS:
+            raise ValueError(
+                f"{cfg.name}: block ({mixer.value}, {ffn.value}) is no "
+                "mixer (attention, RG-LRU, mLSTM or sLSTM) with an FFN (an "
+                "MLP, an MoE FFN or none)")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _init_block(cfg, mixer: BlockKind, ffn: BlockKind):
-    """One block's leaf specs: attention, RG-LRU, mLSTM or sLSTM, with an
-    MLP, an MoE FFN or none (``check_ported`` admits no other)."""
+def _init_block(cfg, mixer: BlockKind, ffn: BlockKind, cross: bool = False):
+    """One block's leaf specs: attention, RG-LRU, mLSTM or sLSTM, then
+    cross-attention where ``cross`` (an encoder-decoder's decoder), with
+    an MLP, an MoE FFN or none (``check_ported`` admits no other)."""
     blk: Dict[str, Any] = {"norm1": zeros_param((cfg.d_model,))}
     if mixer in MIXERS_WITH_KV:
         blk["attn"] = attention.init_attention(cfg)
     else:
         rec = _RECURRENT[mixer]
         blk[rec.key] = rec.init_block(cfg)
+    if cross:
+        blk["cross_attn"] = attention.init_attention(cfg)
+        blk["norm_cross"] = zeros_param((cfg.d_model,))
     if ffn == BlockKind.MLP:
         blk["norm2"] = zeros_param((cfg.d_model,))
         blk["mlp"] = mlp.init_mlp(cfg)
@@ -114,26 +123,41 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda"):
     allocated once, on ``device``, and every group's row of it is drawn
     as ``groups/b<i>/<keys>[<group>]``, block by block, straight into it
     (through one block-sized host buffer a thread for the card).  So the
-    host never holds the model (31 GB for codeqwen1_5_7b in float32)."""
+    host never holds the model (31 GB for codeqwen1_5_7b in float32).
+    An encoder-decoder's encoder stacks ``num_encoder_layers`` groups
+    (``encoder/groups``, no cross-attention) beside its ``final_norm``."""
     check_ported(cfg)
     dev = resolve_device(device)
+    d = cfg.d_model
     top: Dict[str, Any] = {"embed": common.init_embedding(cfg),
-                           "final_norm": zeros_param((cfg.d_model,))}
+                           "final_norm": zeros_param((d,))}
     if not cfg.tie_embeddings:
-        top["unembed"] = param((cfg.padded_vocab, cfg.d_model), scale=0.02)
+        top["unembed"] = param((cfg.padded_vocab, d), scale=0.02)
+    if cfg.is_encoder_decoder:
+        top["encoder"] = {"final_norm": zeros_param((d,))}
+        top["dec_pos_embed"] = param((DEC_POSITIONS, d), scale=0.02)
+    if cfg.frontend == "image_patches":
+        top["patch_adapter"] = param((d, d), scale=0.02)
     params = common.allocate(top, device=dev)
     items = [(name, leaf, t) for (name, leaf), (_, t)
              in zip(common.leaf_paths(top), common.leaf_paths(params))]
-    G = cfg.num_groups
-    params["groups"] = {}
-    for i, (mixer, ffn) in enumerate(cfg.pattern):
-        spec = _init_block(cfg, mixer, ffn)
-        stacked = params["groups"][f"b{i}"] = common.allocate(spec, (G,), dev)
-        for (path, leaf), (_, t) in zip(
-                common.leaf_paths(spec, f"groups/b{i}"),
-                common.leaf_paths(stacked)):
-            items += [(common.leaf_name(path, g), leaf, t[g])
-                      for g in range(G)]
+
+    def stack_groups(node, path: str, G: int, cross: bool):
+        node["groups"] = {}
+        for i, (mixer, ffn) in enumerate(cfg.pattern):
+            spec = _init_block(cfg, mixer, ffn, cross)
+            stacked = node["groups"][f"b{i}"] = common.allocate(spec, (G,),
+                                                                dev)
+            for (name, leaf), (_, t) in zip(
+                    common.leaf_paths(spec, f"{path}/b{i}"),
+                    common.leaf_paths(stacked)):
+                items.extend((common.leaf_name(name, g), leaf, t[g])
+                             for g in range(G))
+
+    stack_groups(params, "groups", cfg.num_groups, cfg.is_encoder_decoder)
+    if cfg.is_encoder_decoder:
+        stack_groups(params["encoder"], "encoder/groups",
+                     cfg.num_encoder_layers, False)
     common.draw(seed, items)
     return params
 
@@ -148,9 +172,6 @@ REMAT = ("none", "dots", "full")
 def _apply_block(blk, x, positions, cfg, i: int, *, enc_out=None,
                  causal: bool = True):
     """Full-sequence (train/prefill-without-cache) block application."""
-    if enc_out is not None:
-        raise NotImplementedError(
-            "cross-attention (enc_out) is not ported yet to repro_torch")
     mixer, ffn = cfg.pattern[i]
     h = common.rms_norm(x, blk["norm1"], cfg.norm_eps)
     if mixer in MIXERS_WITH_KV:
@@ -160,10 +181,21 @@ def _apply_block(blk, x, positions, cfg, i: int, *, enc_out=None,
     else:
         rec = _RECURRENT[mixer]
         y, _ = rec.forward(blk[rec.key], h, cfg)
-    x, aux = _ffn(blk, x + y, cfg, ffn)
+    x = _cross(blk, x + y, positions, cfg, enc_out)
+    x, aux = _ffn(blk, x, cfg, ffn)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
+
+
+def _cross(blk, x, positions, cfg, enc_out):
+    """``x`` plus the block's cross-attention of its normed ``x`` over
+    ``enc_out`` (non-causal, no RoPE), where it has one."""
+    if enc_out is None or "cross_attn" not in blk:
+        return x
+    h = common.rms_norm(x, blk["norm_cross"], cfg.norm_eps)
+    return x + attention.attn_forward(blk["cross_attn"], h, positions, cfg,
+                                      causal=False, kv_x=enc_out)
 
 
 def _ffn(blk, x, cfg, ffn: BlockKind):
@@ -211,23 +243,80 @@ def _run_groups(groups, x, positions, cfg, *, enc_out=None, causal=True,
     return x, aux
 
 
+def _splice(x, update, start: int):
+    """``x`` with ``update`` written along axis 1 from ``start``, with
+    ``jax.lax.dynamic_update_slice``'s semantics: the start is clamped to
+    [0, S - P], and an update longer than ``x`` is a ``TypeError``."""
+    S, P = x.shape[1], update.shape[1]
+    if P > S:
+        raise TypeError(f"an update of {P} along axis 1 does not fit an "
+                        f"operand of {S}")
+    start = max(0, min(start, S - P))
+    return torch.cat([x[:, :start], update, x[:, start + P:]], dim=1)
+
+
 def _embed_inputs(params, batch, cfg):
-    """tokens -> x [B,S,D], positions [B,S] (default: 0..S-1)."""
+    """tokens (+ the stub patch embeddings through ``patch_adapter``,
+    written from token 1) -> x [B,S,D], positions: the batch's ([B,S], or
+    [3,B,S] M-RoPE ids), else 0..S-1 [B,S]."""
     x = common.embed(params["embed"], batch["tokens"], cfg)
     positions = batch.get("positions")
     if positions is None:
         B, S = batch["tokens"].shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None].expand(B, S)
+    if cfg.frontend == "image_patches" and "patch_embeds" in batch:
+        pe = (batch["patch_embeds"].to(x.dtype)
+              @ params["patch_adapter"].to(x.dtype))
+        x = _splice(x, pe, 1)
     return x, positions
+
+
+def _add_dec_positions(params, x, ids):
+    """``x`` plus the learned decoder positions at ``ids`` mod 8192 (ids
+    [1,S] or [B,S] against x [B,S,D]), gathered by ``index_select`` (a
+    deterministic backward on CUDA), in x's dtype."""
+    pe = params["dec_pos_embed"].to(x.dtype)
+    rows = pe.index_select(0, (ids % pe.shape[0]).reshape(-1))
+    return x + rows.reshape(*ids.shape, -1)
+
+
+def _encode(params, batch, cfg):
+    """The encoder over the stub audio frames [B,F,D]: frames in the
+    compute dtype plus sinusoidal positions in the frames' dtype, the
+    encoder groups non-causal, then its final norm."""
+    frames = batch["frames"].to(cfg.compute_dtype)
+    B, F = frames.shape[:2]
+    pos = common.sinusoidal_positions(F, cfg.d_model).to(
+        device=frames.device, dtype=frames.dtype)
+    x = frames + pos[None]
+    positions = torch.arange(F, dtype=torch.int32,
+                             device=x.device)[None].expand(B, F)
+    enc = params["encoder"]
+    x, _ = _run_groups(enc["groups"], x, positions, cfg, causal=False)
+    return common.rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def _decoder_inputs(params, batch, cfg):
+    """-> (x [B,S,D], positions, enc_out or None): the embedded prompt, and
+    for an encoder-decoder the encoder's output and the decoder positions
+    0..S-1 added."""
+    enc_out = (_encode(params, batch, cfg) if cfg.is_encoder_decoder
+               else None)
+    x, positions = _embed_inputs(params, batch, cfg)
+    if cfg.is_encoder_decoder:
+        ids = torch.arange(x.shape[1], device=x.device)[None]
+        x = _add_dec_positions(params, x, ids)
+    return x, positions, enc_out
 
 
 def lm_forward(params, batch, cfg: ModelConfig, *, remat: str = "none",
                unroll: bool = False):
-    """batch: tokens [B,S] (+positions). -> (logits, aux)."""
-    x, positions = _embed_inputs(params, batch, cfg)
-    x, aux = _run_groups(params["groups"], x, positions, cfg, remat=remat,
-                         unroll=unroll)
+    """batch: tokens [B,S] (+frames/patch_embeds/positions). -> (logits,
+    aux)."""
+    x, positions, enc_out = _decoder_inputs(params, batch, cfg)
+    x, aux = _run_groups(params["groups"], x, positions, cfg,
+                         enc_out=enc_out, remat=remat, unroll=unroll)
     return _logits(params, x, cfg), aux
 
 
@@ -265,6 +354,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda"):
             one = _RECURRENT[mixer].init_state(cfg, batch, device=dev)
         cache[f"b{i}"] = tree_map(
             lambda a: a[None].repeat((G,) + (1,) * a.dim()), one)
+    if cfg.is_encoder_decoder:
+        cache["enc_out"] = torch.zeros(
+            (batch, cfg.encoder_seq, cfg.d_model), dtype=cfg.compute_dtype,
+            device=dev)
     return cache
 
 
@@ -304,9 +397,10 @@ def _store_state(cache, key: str, g: int, new) -> None:
         cache[key] = tuple(leaves[n] for n in names)
 
 
-def _run_layers(params, x, positions, cfg, cache, kind: str):
+def _run_layers(params, x, positions, cfg, cache, kind: str, enc_out=None):
     """Apply every layer in order, updating ``cache``; ``kind`` is the
-    serving call (``prefill``, ``decode`` or ``append``)."""
+    serving call (``prefill``, ``decode`` or ``append``); ``enc_out``, the
+    encoder's output that cross-attention attends over."""
     attn_mix = _ATTN_MIXES[kind]
     for g in range(cfg.num_groups):
         for i, (mixer, ffn) in enumerate(cfg.pattern):
@@ -321,7 +415,8 @@ def _run_layers(params, x, positions, cfg, cache, kind: str):
                 mix = rec.decode if kind == "decode" else rec.forward
                 y, new = mix(blk[rec.key], h, cfg, layer_cache)
                 _store_state(cache, f"b{i}", g, new)
-            x, _ = _ffn(blk, x + y, cfg, ffn)  # the MoE's aux is dropped
+            x = _cross(blk, x + y, positions, cfg, enc_out)
+            x, _ = _ffn(blk, x, cfg, ffn)  # the MoE's aux is dropped
     return x
 
 
@@ -330,7 +425,10 @@ def lm_decode_step(params, tokens, positions, cfg: ModelConfig, cache):
 
     ``cache`` is updated in place and returned."""
     x = common.embed(params["embed"], tokens, cfg)
-    x = _run_layers(params, x, positions, cfg, cache, "decode")
+    if cfg.is_encoder_decoder:
+        x = _add_dec_positions(params, x, positions[:, :1])
+    x = _run_layers(params, x, positions, cfg, cache, "decode",
+                    cache.get("enc_out"))
     return _logits(params, x, cfg), cache
 
 
@@ -342,7 +440,10 @@ def lm_append(params, tokens, positions, cfg: ModelConfig, cache):
     updated in place and returned.
     """
     x = common.embed(params["embed"], tokens, cfg)
-    x = _run_layers(params, x, positions, cfg, cache, "append")
+    if cfg.is_encoder_decoder:
+        x = _add_dec_positions(params, x, positions)
+    x = _run_layers(params, x, positions, cfg, cache, "append",
+                    cache.get("enc_out"))
     return _logits(params, x, cfg), cache
 
 
@@ -353,8 +454,18 @@ def lm_prefill(params, batch, cfg: ModelConfig, cache, unroll: bool = False):
     writes, the RG-LRU scan (its kernel on the card) from the cached
     state, and the mLSTM and sLSTM recurrences from the cached state (no
     kernel: as in the reference, only a fresh-state sequence reaches
-    those), layer by layer.  ``cache`` is updated in place and returned.
+    those), layer by layer.  An encoder-decoder first runs its encoder
+    (the flash kernel, non-causal) and writes its output into the cache's
+    ``enc_out`` leaf, which every decoder layer's cross-attention then
+    reads.  ``cache`` is updated in place and returned.
     """
-    x, positions = _embed_inputs(params, batch, cfg)
-    x = _run_layers(params, x, positions, cfg, cache, "prefill")
+    x, positions, enc_out = _decoder_inputs(params, batch, cfg)
+    if enc_out is not None:
+        leaf = cache.get("enc_out")
+        if (leaf is not None and leaf.shape == enc_out.shape
+                and leaf.dtype == enc_out.dtype):
+            leaf.copy_(enc_out)
+        else:
+            cache["enc_out"] = enc_out
+    x = _run_layers(params, x, positions, cfg, cache, "prefill", enc_out)
     return _logits(params, x, cfg), cache

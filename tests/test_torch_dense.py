@@ -141,14 +141,6 @@ def test_rope_for_matches_jax(local, fraction):
     np.testing.assert_array_equal(got.numpy()[..., rot:], x[..., rot:])
 
 
-def test_mrope_still_raises():
-    cfg = dataclasses.replace(tconfigs.get_smoke("chatglm3_6b"),
-                              rope_kind="mrope")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcommon.rope_for(cfg, torch.zeros(1, 2, 1, 4),
-                         torch.zeros(1, 2, dtype=torch.int32), False)
-
-
 @pytest.mark.parametrize("arch", DENSE)
 def test_params_and_cache_trees_identical_to_jax(arch):
     jcfg, jparams, tcfg, tparams = _models(arch, "float32")
@@ -255,18 +247,29 @@ def _stacked_init(cfg, seed):
     def draw(tree, path, row=None):
         return tcommon.materialize(tree, seed, path, row)
 
+    def groups(path, G, cross):
+        return {f"b{i}": stack([draw(TT._init_block(cfg, mixer, ffn, cross),
+                                     f"{path}/b{i}", g) for g in range(G)])
+                for i, (mixer, ffn) in enumerate(cfg.pattern)}
+
+    d = cfg.d_model
     params = {
         "embed": draw(tcommon.init_embedding(cfg), "embed"),
-        "groups": {f"b{i}": stack([draw(TT._init_block(cfg, mixer, ffn),
-                                        f"groups/b{i}", g)
-                                   for g in range(cfg.num_groups)])
-                   for i, (mixer, ffn) in enumerate(cfg.pattern)},
-        "final_norm": torch.zeros((cfg.d_model,)),
+        "groups": groups("groups", cfg.num_groups, cfg.is_encoder_decoder),
+        "final_norm": torch.zeros((d,)),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = draw(tcommon.param((cfg.padded_vocab,
-                                                cfg.d_model), scale=0.02),
-                                 "unembed")
+        params["unembed"] = draw(tcommon.param((cfg.padded_vocab, d),
+                                               scale=0.02), "unembed")
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "groups": groups("encoder/groups", cfg.num_encoder_layers, False),
+            "final_norm": torch.zeros((d,))}
+        params["dec_pos_embed"] = draw(tcommon.param((8192, d), scale=0.02),
+                                       "dec_pos_embed")
+    if cfg.frontend == "image_patches":
+        params["patch_adapter"] = draw(tcommon.param((d, d), scale=0.02),
+                                       "patch_adapter")
     return params
 
 

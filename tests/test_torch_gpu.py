@@ -65,7 +65,13 @@ def _decode_inputs(dev, B, S, H, Hkv, D, dtype, ring, seed=0):
                                          (2, 1280, 8, 4, 256),
                                          # granite_moe_1b_a400m's serve
                                          # shape (16 heads over 8, D 64)
-                                         (8, 128, 16, 8, 64)])
+                                         (8, 128, 16, 8, 64),
+                                         # whisper_large_v3 (MHA, 20
+                                         # heads, D 64) and qwen2_vl_72b
+                                         # (64 heads over 8, D 128, a
+                                         # 320-slot cache)
+                                         (8, 128, 20, 20, 64),
+                                         (8, 320, 64, 8, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain(cuda, B, S, H, Hkv, D, dtype, ring):
     q, k, v, qp, kp = _decode_inputs(cuda, B, S, H, Hkv, D, dtype, ring)
@@ -490,6 +496,16 @@ FLASH_CASES = [  # (B, Sq, Sk, H, Hkv, D, causal, window)
     (2, 1152, 1152, 8, 4, 256, True, 1024),
     (2, 1152, 1152, 8, 4, 256, True, 0),
     (8, 32, 32, 16, 8, 64, True, 0),     # granite_moe_1b_a400m prefill
+    # whisper_large_v3 (MHA, 20 heads, D 64): the encoder over 1500 frames
+    # (non-causal; 1500 = 23 * 64 + 28, a ragged last kv tile), the
+    # decoder's cross-attention over them at the prefill (Sq 32) and at a
+    # decode step (Sq 1), and its causal self-attention; qwen2_vl_72b's
+    # 288-token prefill (64 heads over 8, D 128)
+    (8, 1500, 1500, 20, 20, 64, False, 0),
+    (8, 32, 1500, 20, 20, 64, False, 0),
+    (8, 1, 1500, 20, 20, 64, False, 0),
+    (8, 32, 32, 20, 20, 64, True, 0),
+    (8, 288, 288, 64, 8, 128, True, 0),
 ]
 
 
@@ -558,6 +574,24 @@ def test_flash_wgmma_route_ragged_rows(cuda, B, Sq, Sk, H, Hkv, D, causal,
     torch.testing.assert_close(got.float(), want.float(), **TOL_BF16)
     assert torch.equal(got, fa.flash_attention(q, k, v, causal=causal,
                                                window=window))
+
+
+@pytest.mark.parametrize("Sq", [1, 32, 1500])
+def test_flash_ragged_tile_reads_nothing_of_the_next_row(cuda, Sq):
+    """Non-causal over 1500 keys (a last kv tile of 28): batch row 1 holds
+    values of 1e30, and batch row 0's output is bit-equal to row 0 run
+    alone, finite, on the tensor-core route (masked keys add exactly 0)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _flash_inputs(cuda, 2, Sq, 1500, 20, 20, 64, torch.bfloat16,
+                            seed=7)
+    v[1] = 1e30
+    got = fa.flash_attention(q, k, v, causal=False)
+    alone = fa.flash_attention(q[:1].contiguous(), k[:1].contiguous(),
+                               v[:1].contiguous(), causal=False)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got[:1], alone)
 
 
 @pytest.mark.parametrize("window", [0, 24])

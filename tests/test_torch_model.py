@@ -126,8 +126,3 @@ def test_lm_append_matches_jax():
                               torch.from_numpy(pos), tcfg, tcache)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     _assert_cache_close(jcache, tcache, **TOL)
-
-
-def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tconfigs.get_config("qwen2_vl_72b")

@@ -360,23 +360,6 @@ def test_cache_from_jax_continues_in_the_port(dtype):
     _assert_trees_close(jcache, tcache, **_tol(dtype))
 
 
-@pytest.mark.parametrize("arch", ["whisper_large_v3", "qwen2_vl_72b"])
-def test_check_ported_raises_for_other_mixers(arch):
-    """The port's ModelConfig of an unported architecture (built field by
-    field from the JAX package's) still raises."""
-    jcfg = jconfigs.get_config(arch)
-    fields = {f.name: getattr(jcfg, f.name)
-              for f in dataclasses.fields(tconfig.ModelConfig)}
-    fields["pattern"] = tuple((tconfig.BlockKind(m.value),
-                               tconfig.BlockKind(f.value))
-                              for m, f in jcfg.pattern)
-    tcfg = tconfig.ModelConfig(**fields)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TT.check_ported(tcfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tconfigs.get_config(arch)
-
-
 def test_recurrentgemma_config_matches_jax():
     for get in ("get_config", "get_smoke"):
         j = getattr(jconfigs, get)("recurrentgemma_2b")
