@@ -152,7 +152,13 @@ Phases, each fatal on failure (no phase catches its own error):
      registry and decoded 8 steps bit-equal; qwen2_vl_72b at full width
      cut to 4 of its 80 layers (``serve-qwen2vl-4l``, through the step
      functions: 8 x 288 with 256 image patches each, 32 decode steps; 4
-     flash launches a prefill and 4 decode launches a step); every
+     flash launches a prefill and 4 decode launches a step);
+     ``sharded-1x1``: smollm_360m at full width and depth through the
+     multi-device layer on an NCCL world of one rank and the 1 x 1 host
+     mesh (params, AdamW state, batches and cache as DTensors by the train
+     step's shardings), 4 train steps and a prefill + 8 decode steps
+     bit-equal to the unsharded path, the flash and decode kernels
+     launched on local shards (no multi-rank mesh runs on the card); every
      path's ``init_lm`` seconds and params a second printed; and a
      paper-consumer
      ``TrainerWorker`` at full width
@@ -1867,6 +1873,188 @@ def train_paths(paths) -> None:
           "steps")
 
 
+SHARDED_TRAIN_STEPS = 4
+SHARDED_DECODE_STEPS = 8
+
+
+def _bits_equal(sharded, plain) -> bool:
+    """A DTensor tree's local shards on a 1 x 1 mesh against a plain tree:
+    the same keys, shapes, dtypes and bits."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import flatten
+
+    a, b = flatten(sharded)[0], flatten(plain)[0]
+    return len(a) == len(b) and all(
+        isinstance(x, DTensor) and x.to_local().dtype == y.dtype
+        and torch.equal(x.to_local(), y) for x, y in zip(a, b))
+
+
+def sharded_1x1_phase(paths) -> None:
+    """smollm_360m at full width and depth through the multi-device layer
+    on the card: an NCCL world of one rank and ``make_host_mesh()`` (1 x
+    1, data x model), params, AdamW state, batches and cache placed as
+    DTensors by the train step's shardings; 4 sharded train steps against
+    4 unsharded ones from the same weights (loss and every param bit for
+    bit), then a prefill and 8 decode steps on a sharded cache against
+    the unsharded path (logits and every cache leaf bit for bit), the
+    flash and decode kernels launched on local shards
+    (``ops.LOCAL_SHARD_CALLS``).  No multi-rank mesh runs here."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticTokenDataset
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as steplib
+    from repro_torch.tree import tree_map
+
+    print("[sharded-1x1] the multi-rank mesh was not run on the card: one "
+          "card, an NCCL world of one rank, a 1 x 1 (data, model) mesh "
+          "(multi-rank runs: the CPU gloo tests); torch.cuda.device_count()="
+          f"{torch.cuda.device_count()}")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    store = tempfile.mkdtemp(prefix="chip_smoke_pg_", dir=build.BUILD_DIR)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_host_mesh()
+        cfg = configs.get_config("smollm_360m")
+        B, S, prompt, max_seq = 8, 128, 32, 128
+        tcfg = steplib.TrainStepConfig(
+            remat="none", lr_peak=3e-3, warmup_steps=2,
+            total_steps=SHARDED_TRAIN_STEPS,
+            opt=adamw.AdamWConfig(weight_decay=0.01))
+        ds = SyntheticTokenDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                              seq_len=S, global_batch=B))
+        t0 = time.perf_counter()
+        params = T.init_lm(cfg, seed=0, device="cuda")
+        init_s = time.perf_counter() - t0
+        _, p_sh, _, o_sh = steplib.train_state_shardings(cfg, mesh, tcfg.opt)
+        b_sh = steplib.batch_shardings(cfg, ShapeSpec("t", "train", S, B),
+                                       mesh)
+        step_fn = steplib.build_train_step(cfg, tcfg)
+        batches = [{k: torch.from_numpy(a).cuda()
+                    for k, a in ds.batch(i).items()}
+                   for i in range(SHARDED_TRAIN_STEPS)]
+
+        def train(sharded: bool):
+            p = tree_map(torch.clone, params)
+            o = adamw.adamw_init(p, tcfg.opt)
+            if sharded:
+                p, o = steplib.distribute(p, p_sh), steplib.distribute(o, o_sh)
+            losses, times = [], []
+            for i, b in enumerate(batches):
+                if sharded:
+                    b = steplib.distribute(b, {k: b_sh[k] for k in b})
+                t0 = time.perf_counter()
+                p, o, m = step_fn(p, o, b, torch.tensor(i, dtype=torch.int32))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(m["loss"])
+            return p, o, losses, times
+
+        plain_p, plain_o, plain_l, plain_t = train(False)
+        ops.LOCAL_SHARD_CALLS.clear()
+        launches, (sh_p, sh_o, sh_l, sh_t), wall = run_path(
+            "sharded-1x1-train", lambda: train(True), ("flash_attention",),
+            "wgmma")
+        paths["sharded-1x1-train"] = launches
+        calls = dict(ops.LOCAL_SHARD_CALLS)
+        loss_eq = all(isinstance(a, DTensor)
+                      and torch.equal(a.to_local(), b)
+                      for a, b in zip(sh_l, plain_l))
+        print(f"[sharded-1x1] train: {cfg.param_count()} params (init "
+              f"{init_s:.3f} s), {SHARDED_TRAIN_STEPS} steps of {B} x {S}; "
+              f"losses {[float(x) for x in plain_l]}; step ms unsharded "
+              f"{[round(t * 1e3, 1) for t in plain_t]}, sharded "
+              f"{[round(t * 1e3, 1) for t in sh_t]}; local-shard calls "
+              f"{calls}; launches {launches}")
+        check(loss_eq, "sharded-1x1: train losses differ from the unsharded "
+              "step's bits")
+        check(_bits_equal(sh_p, plain_p) and _bits_equal(sh_o, plain_o),
+              "sharded-1x1: params or AdamW state after the sharded steps "
+              "differ from the unsharded steps' bits")
+        want = SHARDED_TRAIN_STEPS * cfg.num_layers  # one a layer a step
+        check(calls == {"attention": want}
+              and launches["flash_attention"] == want,
+              f"sharded-1x1: local-shard calls {calls}, flash launches "
+              f"{launches['flash_attention']}, want {want} each")
+        del sh_p, sh_o, plain_p, plain_o
+
+        # serving: a prefill and 8 decode steps on a sharded cache
+        rng = np.random.default_rng(1)
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (B, prompt)).astype(np.int32)).cuda()
+        prefill = steplib.build_prefill_step(cfg)
+        decode = steplib.build_decode_step(cfg)
+        c_shapes, c_sh = steplib.cache_shardings(
+            cfg, ShapeSpec("c", "decode", max_seq, B), mesh)
+        p_sh2 = steplib.batch_shardings(cfg, ShapeSpec("p", "prefill",
+                                                       prompt, B), mesh)
+        d_sh = steplib.batch_shardings(cfg, ShapeSpec("d", "decode", max_seq,
+                                                      B), mesh)
+
+        def serve(sharded: bool):
+            p = steplib.distribute(params, p_sh) if sharded else params
+            cache = T.init_cache(cfg, B, max_seq, device="cuda")
+            batch = {"tokens": tokens}
+            if sharded:
+                cache = steplib.distribute(cache, c_sh)
+                batch = steplib.distribute(batch, {"tokens": p_sh2["tokens"]})
+            out = []
+            with torch.no_grad():
+                logits, cache = prefill(p, cache, batch)
+                out.append(logits)
+                tok = tokens[:, -1:]
+                for i in range(SHARDED_DECODE_STEPS):
+                    pos = torch.full((B, 1), prompt + i, dtype=torch.int32,
+                                     device="cuda")
+                    step = {"tokens": tok, "positions": pos}
+                    if sharded:
+                        step = steplib.distribute(step, {k: d_sh[k]
+                                                         for k in step})
+                    logits, cache = decode(p, cache, step["tokens"],
+                                           step["positions"])
+                    out.append(logits)
+                    nxt = logits.to_local() if sharded else logits
+                    tok = torch.argmax(nxt, dim=-1).to(torch.int32)
+            torch.cuda.synchronize()
+            return out, cache
+
+        plain_out, plain_cache = serve(False)
+        ops.LOCAL_SHARD_CALLS.clear()
+        launches, (sh_out, sh_cache), wall = run_path(
+            "sharded-1x1-serve", lambda: serve(True),
+            ("flash_attention", "decode_attention"), "wgmma")
+        paths["sharded-1x1-serve"] = launches
+        calls = dict(ops.LOCAL_SHARD_CALLS)
+        L = cfg.num_layers
+        print(f"[sharded-1x1] serve: prefill {B} x {prompt} and "
+              f"{SHARDED_DECODE_STEPS} decode steps into max_seq {max_seq}; "
+              f"wall {wall:.3f} s; local-shard calls {calls}; launches "
+              f"{launches}")
+        check(_bits_equal(sh_out, plain_out),
+              "sharded-1x1: logits differ from the unsharded path's bits")
+        check(_bits_equal(sh_cache, plain_cache),
+              "sharded-1x1: the cache differs from the unsharded path's bits")
+        want = dict(attention=L, decode_attention=SHARDED_DECODE_STEPS * L)
+        check(calls == want and launches["flash_attention"] == L
+              and launches["decode_attention"] == SHARDED_DECODE_STEPS * L,
+              f"sharded-1x1: local-shard calls {calls}, launches "
+              f"{launches}, want {want} each")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def rg_config(dtype: str = "bfloat16"):
     import dataclasses
 
@@ -3252,7 +3440,8 @@ def main() -> int:
               "--compression", "int8"], "serving-int8",
              ("decode_attention", "xor_fp_lanes", "int8_fp_lanes"))):
         paths[label] = path_phase(argv, label, needs)
-    for phase in (train_paths, rg_serve_paths, xl_paths, dense_serve_paths,
+    for phase in (train_paths, sharded_1x1_phase, rg_serve_paths, xl_paths,
+                  dense_serve_paths,
                   moe_serve_paths, whisper_serve_paths, qvl_serve_path,
                   trainer_migration_paths):
         timed(phase, paths)

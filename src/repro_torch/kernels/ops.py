@@ -5,10 +5,23 @@ decides, and nothing else does: a CUDA tensor launches the hand-written
 kernel (or the call raises), a CPU tensor takes the kernel's plain
 PyTorch version.  There is no switch that sends a CUDA tensor to a plain
 version.
+
+The model's entries (``attention``, ``decode_attention``, ``rglru_scan``,
+``slstm_scan``, ``mlstm_scan``) also take DTensors.  A kernel cannot be
+partitioned (nor can a Pallas custom call in XLA), so each such call
+redistributes its inputs to a layout where the kernel's work is local
+(batch over the rules' batch axes, heads or recurrent channels over
+``model`` where every count divides; sequence, time and head dim whole),
+runs the same entry on every rank's local shards, and returns DTensors
+of that layout (``_on_shards``; differentiable through ``to_local`` and
+``from_local``).  ``LOCAL_SHARD_CALLS`` counts these calls by entry.
 """
 from __future__ import annotations
 
+import collections
+
 import numpy as np
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import codec as _ck
 from repro_torch.kernels import decode_attention as _da
@@ -18,6 +31,41 @@ from repro_torch.kernels import mlstm as _ml
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru as _rg
 from repro_torch.kernels import slstm as _sl
+from repro_torch.sharding.rules import (batch_axes, mesh_axes,
+                                        on_local_shards)
+
+LOCAL_SHARD_CALLS = collections.Counter()
+
+
+def _mesh_of(*args):
+    """The mesh of the first DTensor among ``args`` (tuples searched), or
+    None."""
+    for a in args:
+        if isinstance(a, tuple):
+            a = _mesh_of(*a)
+            if a is not None:
+                return a
+        elif isinstance(a, DTensor):
+            return a.device_mesh
+    return None
+
+
+def _layout(mesh, batch: int, counts):
+    """-> (batch entry, channel entry) of a kernel's local layout: batch
+    over the rules' batch axes where they divide it; heads (or recurrent
+    channels) over ``model`` where every one of ``counts`` divides."""
+    b = batch_axes(mesh, batch)
+    used = (b,) if isinstance(b, str) else tuple(b or ())
+    m = mesh_axes(mesh).get("model")
+    h = ("model" if m and "model" not in used
+         and all(c % m == 0 for c in counts) else None)
+    return b, h
+
+
+def _on_shards(name, fn, mesh, args, specs, out_specs):
+    """``rules.on_local_shards``, counted in ``LOCAL_SHARD_CALLS``."""
+    LOCAL_SHARD_CALLS[name] += 1
+    return on_local_shards(fn, mesh, args, specs, out_specs)
 
 
 def attention(q, k, v, *, causal=True, window=0):
@@ -25,6 +73,14 @@ def attention(q, k, v, *, causal=True, window=0):
 
     Differentiable: on CUDA the flash kernel's ``autograd.Function``, on
     the CPU the plain version under autograd."""
+    mesh = _mesh_of(q, k, v)
+    if mesh is not None:
+        b, h = _layout(mesh, q.shape[0], (q.shape[2], k.shape[2]))
+        sp = (b, None, h, None)
+        return _on_shards(
+            "attention",
+            lambda q, k, v: attention(q, k, v, causal=causal, window=window),
+            mesh, (q, k, v), (sp, sp, sp), sp)
     if q.is_cuda:
         return _fa.FlashAttention.apply(q.contiguous(), k.contiguous(),
                                         v.contiguous(), bool(causal),
@@ -33,7 +89,16 @@ def attention(q, k, v, *, causal=True, window=0):
 
 
 def decode_attention(q, k_cache, v_cache, q_pos, k_pos):
-    """Single-token attention over KV cache. q [B,1,H,D]."""
+    """Single-token attention over KV cache. q [B,1,H,D]; caches
+    [B,S,Hkv,D]; q_pos [B]; k_pos [B,S] (a DTensor cache is gathered along
+    S: the kernel sees every slot of its rows)."""
+    mesh = _mesh_of(q, k_cache, v_cache, q_pos, k_pos)
+    if mesh is not None:
+        b, h = _layout(mesh, q.shape[0], (q.shape[2], k_cache.shape[2]))
+        sp = (b, None, h, None)
+        return _on_shards("decode_attention", decode_attention, mesh,
+                          (q, k_cache, v_cache, q_pos, k_pos),
+                          (sp, sp, sp, (b,), (b, None)), sp)
     if q.is_cuda:
         return _da.decode_attention(q, k_cache, v_cache, q_pos, k_pos)
     return ref.decode_attention(q, k_cache, v_cache, q_pos=q_pos, k_pos=k_pos)
@@ -45,6 +110,15 @@ def rglru_scan(x, a_param, gate_a, gate_x, h0=None, *, c: float = 8.0):
 
     Differentiable: on CUDA the RG-LRU kernel's ``autograd.Function``, on
     the CPU the plain version under autograd."""
+    mesh = _mesh_of(x, a_param, gate_a, gate_x, h0)
+    if mesh is not None:
+        b, w = _layout(mesh, x.shape[0], (x.shape[2],))
+        sp = (b, None, w)
+        return _on_shards(
+            "rglru_scan",
+            lambda *t: rglru_scan(*t, c=c), mesh,
+            (x, a_param, gate_a, gate_x, h0),
+            (sp, (w,), sp, sp, (b, w)), (sp, (b, w)))
     if x.is_cuda:
         return _rg.RGLRUScan.apply(
             x.contiguous(), a_param.contiguous(), gate_a.contiguous(),
@@ -66,6 +140,19 @@ def slstm_scan(x_i, x_f, x_z, x_o, r_i, r_f, r_z, r_o, state=None):
     device: the port of the reference's own jnp path, which the reference
     takes on the TPU as well, not a plain version standing in for a
     kernel."""
+    mesh = _mesh_of(x_i, x_f, x_z, x_o, r_i, r_f, r_z, r_o, state)
+    if mesh is not None:  # whole heads a shard: W is H blocks of hb
+        b, h = _layout(mesh, x_i.shape[0], (r_i.shape[0],))
+        sx, sr, ss = (b, None, h), (h, None, None), (b, h)
+        st = (None,) * 4 if state is None else tuple(state)
+
+        def local(*t):
+            return slstm_scan(*t[:8], None if state is None else t[8:])
+
+        return _on_shards("slstm_scan", local, mesh,
+                          (x_i, x_f, x_z, x_o, r_i, r_f, r_z, r_o) + st,
+                          (sx,) * 4 + (sr,) * 4 + (ss,) * 4,
+                          (sx, (ss,) * 4))
     if state is None and x_i.is_cuda:
         h = _sl.SLSTMScan.apply(*(t.contiguous() for t in (
             x_i, x_f, x_z, x_o, r_i, r_f, r_z, r_o)))
@@ -87,6 +174,19 @@ def mlstm_scan(q, k, v, i_gate, f_gate, state=None):
     every device, h in float32: the port of the reference's own jnp path,
     which the reference takes on the TPU as well, not a plain version
     standing in for a kernel."""
+    mesh = _mesh_of(q, k, v, i_gate, f_gate, state)
+    if mesh is not None:
+        b, h = _layout(mesh, q.shape[0], (q.shape[2],))
+        sq, sg = (b, None, h, None), (b, None, h)
+        ss = ((b, h, None, None), (b, h, None), (b, h))
+        st = (None,) * 3 if state is None else tuple(state)
+
+        def local(*t):
+            return mlstm_scan(*t[:5], None if state is None else t[5:])
+
+        return _on_shards("mlstm_scan", local, mesh,
+                          (q, k, v, i_gate, f_gate) + st,
+                          (sq,) * 3 + (sg,) * 2 + ss, (sq, ss))
     if state is None:
         ch = 128
         while q.shape[1] % ch:

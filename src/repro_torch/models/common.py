@@ -1,9 +1,11 @@
 """Shared layers: initializers, norms, RoPE, embeddings.
 
-Port of ``repro.models.common``.  Params are plain dicts of tensors (the
-reference's ``ParamLeaf`` sharding tags have no counterpart here).
+Port of ``repro.models.common``.  Params are plain dicts of tensors.
 
-Initializers return ``Leaf`` specs (shape, scale, dtype), not tensors;
+Initializers return ``Leaf`` specs (shape, scale, dtype and the
+reference's logical sharding axes), not tensors; ``split_params`` turns a
+spec tree into meta tensors and its axes tree, as the reference's
+``split_params`` does for a ``ParamLeaf`` tree;
 ``draw`` fills tensors from them on a pool of host threads.  A leaf is
 named by its path in the params tree (and its row, for a leaf stacked
 over layer groups), and every block of ``BLOCK`` elements of it is drawn
@@ -34,24 +36,131 @@ _TRUNC = math.erf(math.sqrt(2.0))
 @dataclasses.dataclass(frozen=True)
 class Leaf:
     """A parameter leaf to draw: truncated normal on [-2, 2] times
-    ``scale``; zeros where ``scale`` is 0."""
+    ``scale``; zeros where ``scale`` is 0.  ``axes`` are its logical
+    sharding axes, one name (or None) a dim; the draw never reads them."""
     shape: Tuple[int, ...]
     scale: float
     dtype: torch.dtype = torch.float32
+    axes: Tuple[Optional[str], ...] = ()
 
 
-def param(shape: Sequence[int], scale: Optional[float] = None,
-          dtype=torch.float32) -> Leaf:
+def _axes(shape, axes) -> Tuple[Optional[str], ...]:
+    axes = (None,) * len(shape) if axes is None else tuple(axes)
+    assert len(axes) == len(shape), (shape, axes)
+    return axes
+
+
+def param(shape: Sequence[int], axes: Optional[Sequence] = None,
+          scale: Optional[float] = None, dtype=torch.float32) -> Leaf:
     """Truncated-normal init with fan-in scaling (scale=None) or constant std."""
     shape = tuple(shape)
     if scale is None:
         fan_in = shape[0] if len(shape) >= 1 else 1
         scale = 1.0 / np.sqrt(max(1, fan_in))
-    return Leaf(shape, float(scale), dtype)
+    return Leaf(shape, float(scale), dtype, _axes(shape, axes))
 
 
-def zeros_param(shape: Sequence[int], dtype=torch.float32) -> Leaf:
-    return Leaf(tuple(shape), 0.0, dtype)
+def zeros_param(shape: Sequence[int], axes: Optional[Sequence] = None,
+                dtype=torch.float32) -> Leaf:
+    return Leaf(tuple(shape), 0.0, dtype, _axes(shape, axes))
+
+
+def stack_leaves(tree, n: int):
+    """A block's spec tree stacked ``n`` times over a leading ``layers``
+    axis (the reference's ``transformer._stack_layers``)."""
+    if isinstance(tree, dict):
+        return {k: stack_leaves(v, n) for k, v in tree.items()}
+    return dataclasses.replace(tree, shape=(n,) + tree.shape,
+                               axes=("layers",) + tree.axes)
+
+
+def split_params(tree, dtype=None):
+    """A spec tree -> (meta tensors of its shapes and dtypes, its axes
+    tree), the reference's ``split_params`` over ``jax.eval_shape``.
+    ``dtype`` replaces every float32 leaf's dtype.  Nothing is allocated."""
+    if isinstance(tree, dict):
+        pairs = {k: split_params(v, dtype) for k, v in tree.items()}
+        return ({k: v[0] for k, v in pairs.items()},
+                {k: v[1] for k, v in pairs.items()})
+    dt = dtype if dtype is not None and tree.dtype == torch.float32 \
+        else tree.dtype
+    return torch.empty(tree.shape, dtype=dt, device="meta"), tree.axes
+
+
+def _replicated_dims(x, dims, lead: int = 1):
+    """A DTensor ``x`` replicated along each dim of ``dims`` that is split
+    over mesh axes, unless ``lead`` is a multiple of the dim's shard
+    count (pass ``lead`` 0 to replicate every split one)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = list(x.placements)
+    mesh = x.device_mesh
+    drop = set()
+    for d in dims:
+        n = math.prod(mesh.size(m) for m, p in enumerate(pl) if p == Shard(d))
+        if n > 1 and (lead == 0 or lead % n):
+            drop.add(d)
+    if not drop:
+        return x
+    return x.redistribute(mesh, [Replicate() if isinstance(p, Shard)
+                                 and p.dim in drop else p for p in pl])
+
+
+def _split(x, dim, sizes):
+    x = _replicated_dims(x, (dim,), sizes[0])
+    return x.reshape(tuple(x.shape[:dim]) + tuple(sizes)
+                     + tuple(x.shape[dim + 1:]))
+
+
+def _merge(x, dim, n):
+    x = _replicated_dims(x, range(dim + 1, dim + n), 0)
+    return x.reshape(tuple(x.shape[:dim]) + (-1,)
+                     + tuple(x.shape[dim + n:]))
+
+
+class _SplitDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, sizes):
+        ctx.dim, ctx.n = dim, len(sizes)
+        return _split(x, dim, sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _merge(g, ctx.dim, ctx.n), None, None
+
+
+class _MergeDims(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, n):
+        ctx.dim, ctx.sizes = dim, tuple(x.shape[dim:dim + n])
+        return _merge(x, dim, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _split(g, ctx.dim, ctx.sizes), None, None
+
+
+def split_dim(x, dim: int, sizes: Sequence[int]):
+    """``x`` with dim ``dim`` split into ``sizes`` (a view).  DTensor cannot
+    view a dim split over mesh axes whose size does not divide
+    ``sizes[0]``, nor merge a split inner dim: such a DTensor (or its
+    gradient) is first replicated along that dim."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        return _SplitDim.apply(x, dim, tuple(sizes))
+    return x.reshape(tuple(x.shape[:dim]) + tuple(sizes)
+                     + tuple(x.shape[dim + 1:]))
+
+
+def merge_dims(x, dim: int, n: int = 2):
+    """``x`` with dims ``dim .. dim+n-1`` merged into one (a view; see
+    ``split_dim`` for a DTensor)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        return _MergeDims.apply(x, dim, n)
+    return x.reshape(tuple(x.shape[:dim]) + (-1,) + tuple(x.shape[dim + n:]))
 
 
 def leaf_paths(tree, path: str = ""):
@@ -251,7 +360,8 @@ def sinusoidal_positions(seq: int, dim: int):
 # ---------------------------------------------------------------------------
 
 def init_embedding(cfg):
-    return {"table": param((cfg.padded_vocab, cfg.d_model), scale=0.02)}
+    return {"table": param((cfg.padded_vocab, cfg.d_model),
+                           ("vocab", "embed"), scale=0.02)}
 
 
 def embed(params, ids, cfg):

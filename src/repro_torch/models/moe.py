@@ -6,9 +6,9 @@ expert's capacity drop (their residual passes through).  Dispatch and
 combine are sorts and gathers, the expert products three batched
 einsums over ``[.., E, C, D]`` buffers.
 
-The reference's sharding constraints on the expert buffers (the
-``constrain`` hints for expert parallelism) have no counterpart here:
-the port runs on one device.
+The reference's sharding constraints on the expert buffers (experts
+over ``model``: expert parallelism) are kept; they are no-ops on plain
+tensors.
 
 Determinism: the local route (the default) is scatter-free, sorts,
 ``torch.gather`` and a reshape-sum, so it gives the same bits on every
@@ -20,22 +20,28 @@ a fixed order instead of the reference's scatter-add.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import mlp as _mlp
-from repro_torch.models.common import param
+from repro_torch.models.common import merge_dims, param, split_dim
+from repro_torch.sharding.rules import batch_axes, on_local_shards
+from repro_torch.sharding.rules import (
+    with_sharding_constraint_logical as constrain)
 
 
 def init_moe(cfg):
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
     p = {
-        "router": param((d, E), scale=0.02),
+        "router": param((d, E), ("embed", "experts"), scale=0.02),
         # fan-in is shape[0], as in the reference: the expert stacks are
         # scaled by 1/sqrt(E), not 1/sqrt(d)
-        "w_gate": param((E, d, ff)),
-        "w_up": param((E, d, ff)),
-        "w_down": param((E, ff, d)),
+        "w_gate": param((E, d, ff), ("experts", "embed", "expert_mlp")),
+        "w_up": param((E, d, ff), ("experts", "embed", "expert_mlp")),
+        "w_down": param((E, ff, d), ("experts", "expert_mlp", "embed")),
     }
     if cfg.shared_expert:
         p["shared"] = _mlp.init_mlp(cfg)
@@ -53,6 +59,10 @@ def moe_forward(params, x, cfg):
     if cfg.moe_routing == "local":
         return _moe_forward_local(params, x, cfg)
     return _moe_forward_global(params, x, cfg)
+
+
+def _expert_axes(cfg):
+    return "act_experts" if cfg.expert_sharding == "model" else None
 
 
 def top_k(probs, k: int):
@@ -77,20 +87,58 @@ def _router(params, xf, cfg):
     return gate_w, gate_ids, aux
 
 
-def _experts(params, expert_in, dt, lead: str):
+def _experts(params, expert_in, dt, lead: str, axes):
     """The three expert products over ``expert_in`` [..., E, C, D]
-    (``lead``: the einsum letters of its axes before E)."""
+    (``lead``: the einsum letters of its axes before E; ``axes``: the
+    buffers' logical axes)."""
     wg = params["w_gate"].to(dt)
     wu = params["w_up"].to(dt)
     wd = params["w_down"].to(dt)
+    expert_in = constrain(expert_in, axes)
     h = F.silu(torch.einsum(f"{lead}ecd,edf->{lead}ecf", expert_in, wg))
     h = h * torch.einsum(f"{lead}ecd,edf->{lead}ecf", expert_in, wu)
-    return torch.einsum(f"{lead}ecf,efd->{lead}ecd", h, wd)
+    h = constrain(h, axes)
+    return constrain(torch.einsum(f"{lead}ecf,efd->{lead}ecd", h, wd), axes)
 
 
 def _take(a, idx):
     """``take_along_axis`` on axis 1 of ``a`` [B, N, D] with ``idx`` [B, M]."""
     return torch.gather(a, 1, idx[..., None].expand(-1, -1, a.shape[-1]))
+
+
+def _local_plan(gate_ids, *, E: int, K: int, C: int):
+    """The local route's dispatch and combine indices, per batch row, from
+    the expert picks [B,S,K] -> (tok, hit) [B,E*C]: the token each expert
+    slot reads and whether it holds one; (slot, kept) [B,S*K]: the slot
+    each sorted entry sits at and whether it fit; inv_order [B,S*K]: the
+    inverse of the sort."""
+    B, S, _ = gate_ids.shape
+    dev = gate_ids.device
+    flat_e = gate_ids.reshape(B, S * K)
+    order = torch.sort(flat_e, dim=-1, stable=True).indices
+    inv_order = torch.sort(order, dim=-1, stable=True).indices
+    e_s = torch.gather(flat_e, 1, order)
+    t_s = order // K  # token id of sorted entry (entries are token-major)
+
+    # run starts per expert: starts[b,e] = first sorted index of expert e
+    experts = torch.arange(E, device=dev).expand(B, E).contiguous()
+    starts = torch.searchsorted(e_s, experts, side="left")
+
+    # dispatch: slot (e,c) <- sorted entry starts[e]+c
+    src = starts[:, :, None] + torch.arange(C, device=dev)  # [B,E,C]
+    src_flat = src.reshape(B, E * C)
+    in_range = src_flat < S * K
+    src_safe = torch.clamp(src_flat, max=S * K - 1)
+    e_at_src = torch.gather(e_s, 1, src_safe)
+    hit = in_range & (e_at_src == torch.arange(E * C, device=dev) // C)
+    tok = torch.where(hit, torch.gather(t_s, 1, src_safe), 0)  # [B,E*C]
+
+    # combine: sorted entry i sits at slot e_s*C + rank
+    rank = (torch.arange(S * K, device=dev)
+            - torch.gather(starts, 1, e_s))
+    kept = rank < C  # capacity overflow drops (token keeps its residual)
+    slot = torch.where(kept, e_s * C + rank, 0)
+    return tok, hit, slot, kept, inv_order
 
 
 def _moe_forward_local(params, x, cfg):
@@ -105,48 +153,38 @@ def _moe_forward_local(params, x, cfg):
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     C = expert_capacity(cfg, S)  # per-row capacity
-    dt, dev = x.dtype, x.device
+    dt = x.dtype
 
     gate_w, gate_ids, aux = _router(params, x, cfg)  # [B,S,K]
-
-    flat_e = gate_ids.reshape(B, S * K)
-    order = torch.sort(flat_e, dim=-1, stable=True).indices
-    inv_order = torch.sort(order, dim=-1, stable=True).indices
-    e_s = torch.gather(flat_e, 1, order)
-    t_s = order // K  # token id of sorted entry (entries are token-major)
-
-    # run starts per expert: starts[b,e] = first sorted index of expert e
-    experts = torch.arange(E, device=dev).expand(B, E).contiguous()
-    starts = torch.searchsorted(e_s, experts, side="left")
+    plan = functools.partial(_local_plan, E=E, K=K, C=C)
+    if isinstance(gate_ids, DTensor):
+        # DTensor has no rule for searchsorted; the plan is per batch row,
+        # so each rank plans its own rows
+        mesh = gate_ids.device_mesh
+        b = batch_axes(mesh, B)
+        tok, hit, slot, kept, inv_order = on_local_shards(
+            plan, mesh, (gate_ids,), ((b, None, None),), ((b, None),) * 5)
+    else:
+        tok, hit, slot, kept, inv_order = plan(gate_ids)
 
     # ---- dispatch as a gather: slot (e,c) <- sorted entry starts[e]+c ----
-    src = starts[:, :, None] + torch.arange(C, device=dev)  # [B,E,C]
-    src_flat = src.reshape(B, E * C)
-    in_range = src_flat < S * K
-    src_safe = torch.clamp(src_flat, max=S * K - 1)
-    e_at_src = torch.gather(e_s, 1, src_safe)
-    hit = in_range & (e_at_src == torch.arange(E * C, device=dev) // C)
-    tok = torch.gather(t_s, 1, src_safe)  # [B,E*C]
-    gathered = _take(x, torch.where(hit, tok, 0))
-    expert_in = (gathered * hit[..., None].to(dt)).reshape(B, E, C, D)
+    gathered = _take(x, tok)
+    expert_in = split_dim(gathered * hit[..., None].to(dt), 1, (E, C))
 
-    expert_out = _experts(params, expert_in, dt, "b")
+    expert_out = _experts(params, expert_in, dt, "b",
+                          ("batch", _expert_axes(cfg), None, None))
 
     # ---- combine as a gather: sorted entry i sits at slot e_s*C + rank ----
-    flat_out = expert_out.reshape(B, E * C, D)
-    rank = (torch.arange(S * K, device=dev)
-            - torch.gather(starts, 1, e_s))
-    kept = rank < C  # capacity overflow drops (token keeps its residual)
-    slot = torch.where(kept, e_s * C + rank, 0)
+    flat_out = merge_dims(expert_out, 1)
     per_entry = _take(flat_out, slot) * kept[..., None].to(dt)
     # un-sort back to token-major order and fold the K contributions
     unsorted = _take(per_entry, inv_order)
-    w = gate_w.reshape(B, S, K).to(dt)
-    out = torch.einsum("bskd,bsk->bsd", unsorted.reshape(B, S, K, D), w)
+    w = gate_w.to(dt)
+    out = torch.einsum("bskd,bsk->bsd", split_dim(unsorted, 1, (S, K)), w)
 
     if cfg.shared_expert:
         out = out + _mlp.mlp_forward(params["shared"], x, cfg)
-    return out, aux
+    return constrain(out, ("batch", "seq", "act_embed")), aux
 
 
 def _moe_forward_global(params, x, cfg):
@@ -176,7 +214,8 @@ def _moe_forward_global(params, x, cfg):
     buf.index_put_((slot,), gathered, accumulate=True)
     expert_in = buf[: E * C].reshape(E, C, D)
 
-    expert_out = _experts(params, expert_in, dt, "")
+    expert_out = _experts(params, expert_in, dt, "",
+                          ("act_experts", None, None))
 
     # ---- combine: un-sort to token-major order, sum each token's K ----
     flat_out = expert_out.reshape(E * C, D)
@@ -188,4 +227,4 @@ def _moe_forward_global(params, x, cfg):
 
     if cfg.shared_expert:
         out = out + _mlp.mlp_forward(params["shared"], x, cfg).reshape(T, D)
-    return out.reshape(B, S, D), aux
+    return constrain(out.reshape(B, S, D), ("batch", "seq", "act_embed")), aux

@@ -19,7 +19,10 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops, ref
+from repro_torch.models import common
 from repro_torch.models.common import param, zeros_param
+from repro_torch.sharding.rules import \
+    with_sharding_constraint_logical as constrain
 
 
 def init_rglru_block(cfg):
@@ -28,18 +31,19 @@ def init_rglru_block(cfg):
     H = cfg.num_heads
     hb = w // H  # block-diagonal gate head width
     return {
-        "w_x": param((d, w)),
-        "w_gate_branch": param((d, w)),
-        "conv_w": param((cfg.conv1d_width, w), scale=0.1),
-        "conv_b": zeros_param((w,)),
+        "w_x": param((d, w), ("embed", "rec_width")),
+        "w_gate_branch": param((d, w), ("embed", "rec_width")),
+        "conv_w": param((cfg.conv1d_width, w), ("conv", "rec_width"),
+                        scale=0.1),
+        "conv_b": zeros_param((w,), ("rec_width",)),
         # block-diagonal input/recurrence gates (per-head [hb, hb])
-        "gate_a_w": param((H, hb, hb)),
-        "gate_x_w": param((H, hb, hb)),
-        "gate_a_b": zeros_param((w,)),
-        "gate_x_b": zeros_param((w,)),
+        "gate_a_w": param((H, hb, hb), ("act_kv_heads", None, "rec_width")),
+        "gate_x_w": param((H, hb, hb), ("act_kv_heads", None, "rec_width")),
+        "gate_a_b": zeros_param((w,), ("rec_width",)),
+        "gate_x_b": zeros_param((w,), ("rec_width",)),
         # a-parameter initialized so a = sigmoid(Λ) spans ~[0.9, 0.999]
-        "a_param": param((w,), scale=0.5),
-        "w_out": param((w, d)),
+        "a_param": param((w,), ("rec_width",), scale=0.5),
+        "w_out": param((w, d), ("rec_width", "embed")),
     }
 
 
@@ -64,11 +68,11 @@ def _block_gates(params, x, cfg):
     """Block-diagonal gate projections. x [B,S,W] -> (gate_a, gate_x)."""
     H = cfg.num_heads
     B, S, W = x.shape
-    xh = x.reshape(B, S, H, W // H)
+    xh = common.split_dim(x, 2, (H, W // H))
     ga = torch.einsum("bshi,hij->bshj", xh, params["gate_a_w"].to(x.dtype))
     gx = torch.einsum("bshi,hij->bshj", xh, params["gate_x_w"].to(x.dtype))
-    ga = ga.reshape(B, S, W) + params["gate_a_b"].to(x.dtype)
-    gx = gx.reshape(B, S, W) + params["gate_x_b"].to(x.dtype)
+    ga = common.merge_dims(ga, 2) + params["gate_a_b"].to(x.dtype)
+    gx = common.merge_dims(gx, 2) + params["gate_x_b"].to(x.dtype)
     return ga, gx
 
 
@@ -78,7 +82,7 @@ def _branches(params, x, cfg, conv_state):
     # jax.nn.gelu's default is the tanh approximation
     gate_branch = F.gelu(x @ params["w_gate_branch"].to(dt),
                          approximate="tanh")
-    u = x @ params["w_x"].to(dt)
+    u = constrain(x @ params["w_x"].to(dt), ("batch", "seq", "rec_width"))
     u, new_conv = _conv1d(u, params["conv_w"].to(dt), params["conv_b"].to(dt),
                           conv_state)
     ga, gx = _block_gates(params, u, cfg)
@@ -93,8 +97,10 @@ def rglru_block_forward(params, x, cfg, state=None):
         params, x, cfg, None if state is None else state["conv"])
     h0 = None if state is None else state["h"]
     hs, h_last = ops.rglru_scan(u, params["a_param"], ga, gx, h0)
+    hs = constrain(hs, ("batch", "seq", "rec_width"))
     out = (hs * gate_branch) @ params["w_out"].to(x.dtype)
-    return out, {"h": h_last, "conv": new_conv}
+    return (constrain(out, ("batch", "seq", "act_embed")),
+            {"h": h_last, "conv": new_conv})
 
 
 def rglru_decode_step(params, x, cfg, state):
@@ -116,3 +122,7 @@ def init_rglru_state(cfg, batch: int, device="cuda"):
         "conv": torch.zeros((batch, cfg.conv1d_width - 1, w),
                             dtype=torch.float32, device=dev),
     }
+
+
+def rglru_state_logical_axes():
+    return {"h": ("batch", "rec_width"), "conv": ("batch", None, "rec_width")}

@@ -41,11 +41,15 @@ from typing import Any, Callable, Dict, NamedTuple
 
 import torch
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch import resolve_device
 from repro_torch.models import attention, common, mlp, moe, rglru, xlstm
 from repro_torch.models.config import BlockKind, ModelConfig
 from repro_torch.models.common import param, zeros_param
+from repro_torch.sharding.rules import map_axes
+from repro_torch.sharding.rules import (
+    with_sharding_constraint_logical as constrain)
 from repro_torch.tree import flatten, tree_map, unflatten
 
 MIXERS_WITH_KV = (BlockKind.ATTN_GLOBAL, BlockKind.ATTN_LOCAL)
@@ -96,7 +100,7 @@ def _init_block(cfg, mixer: BlockKind, ffn: BlockKind, cross: bool = False):
     """One block's leaf specs: attention, RG-LRU, mLSTM or sLSTM, then
     cross-attention where ``cross`` (an encoder-decoder's decoder), with
     an MLP, an MoE FFN or none (``check_ported`` admits no other)."""
-    blk: Dict[str, Any] = {"norm1": zeros_param((cfg.d_model,))}
+    blk: Dict[str, Any] = {"norm1": zeros_param((cfg.d_model,), ("embed",))}
     if mixer in MIXERS_WITH_KV:
         blk["attn"] = attention.init_attention(cfg)
     else:
@@ -104,14 +108,51 @@ def _init_block(cfg, mixer: BlockKind, ffn: BlockKind, cross: bool = False):
         blk[rec.key] = rec.init_block(cfg)
     if cross:
         blk["cross_attn"] = attention.init_attention(cfg)
-        blk["norm_cross"] = zeros_param((cfg.d_model,))
+        blk["norm_cross"] = zeros_param((cfg.d_model,), ("embed",))
     if ffn == BlockKind.MLP:
-        blk["norm2"] = zeros_param((cfg.d_model,))
+        blk["norm2"] = zeros_param((cfg.d_model,), ("embed",))
         blk["mlp"] = mlp.init_mlp(cfg)
     elif ffn == BlockKind.MOE:
-        blk["norm2"] = zeros_param((cfg.d_model,))
+        blk["norm2"] = zeros_param((cfg.d_model,), ("embed",))
         blk["moe"] = moe.init_moe(cfg)
     return blk
+
+
+def _top_specs(cfg):
+    """The specs of the leaves outside the layer groups."""
+    d = cfg.d_model
+    top: Dict[str, Any] = {"embed": common.init_embedding(cfg),
+                           "final_norm": zeros_param((d,), ("embed",))}
+    if not cfg.tie_embeddings:
+        top["unembed"] = param((cfg.padded_vocab, d), ("vocab", "embed"),
+                               scale=0.02)
+    if cfg.is_encoder_decoder:
+        top["encoder"] = {"final_norm": zeros_param((d,), ("embed",))}
+        # learned decoder positions (whisper), capped at 8192 and tiled
+        top["dec_pos_embed"] = param((DEC_POSITIONS, d), (None, "embed"),
+                                     scale=0.02)
+    if cfg.frontend == "image_patches":
+        top["patch_adapter"] = param((d, d), ("embed", "act_embed"),
+                                     scale=0.02)
+    return top
+
+
+def lm_specs(cfg: ModelConfig):
+    """The whole params tree as ``Leaf`` specs, the group leaves stacked
+    over a leading ``layers`` axis: the tree ``init_lm`` draws, with the
+    reference's logical axes (``common.split_params`` splits it)."""
+    check_ported(cfg)
+    top = _top_specs(cfg)
+
+    def groups(G: int, cross: bool):
+        return {f"b{i}": common.stack_leaves(
+                    _init_block(cfg, mixer, ffn, cross), G)
+                for i, (mixer, ffn) in enumerate(cfg.pattern)}
+
+    top["groups"] = groups(cfg.num_groups, cfg.is_encoder_decoder)
+    if cfg.is_encoder_decoder:
+        top["encoder"]["groups"] = groups(cfg.num_encoder_layers, False)
+    return top
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda"):
@@ -128,16 +169,7 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda"):
     (``encoder/groups``, no cross-attention) beside its ``final_norm``."""
     check_ported(cfg)
     dev = resolve_device(device)
-    d = cfg.d_model
-    top: Dict[str, Any] = {"embed": common.init_embedding(cfg),
-                           "final_norm": zeros_param((d,))}
-    if not cfg.tie_embeddings:
-        top["unembed"] = param((cfg.padded_vocab, d), scale=0.02)
-    if cfg.is_encoder_decoder:
-        top["encoder"] = {"final_norm": zeros_param((d,))}
-        top["dec_pos_embed"] = param((DEC_POSITIONS, d), scale=0.02)
-    if cfg.frontend == "image_patches":
-        top["patch_adapter"] = param((d, d), scale=0.02)
+    top = _top_specs(cfg)
     params = common.allocate(top, device=dev)
     items = [(name, leaf, t) for (name, leaf), (_, t)
              in zip(common.leaf_paths(top), common.leaf_paths(params))]
@@ -269,7 +301,7 @@ def _embed_inputs(params, batch, cfg):
         pe = (batch["patch_embeds"].to(x.dtype)
               @ params["patch_adapter"].to(x.dtype))
         x = _splice(x, pe, 1)
-    return x, positions
+    return constrain(x, ("batch", "seq", "act_embed")), positions
 
 
 def _add_dec_positions(params, x, ids):
@@ -277,8 +309,14 @@ def _add_dec_positions(params, x, ids):
     [1,S] or [B,S] against x [B,S,D]), gathered by ``index_select`` (a
     deterministic backward on CUDA), in x's dtype."""
     pe = params["dec_pos_embed"].to(x.dtype)
-    rows = pe.index_select(0, (ids % pe.shape[0]).reshape(-1))
-    return x + rows.reshape(*ids.shape, -1)
+    idx = (ids % pe.shape[0]).reshape(-1)
+    if isinstance(pe, DTensor) and not isinstance(idx, DTensor):
+        # a plain index taken as replicated gives index_select a wrong
+        # gradient under DTensor; an explicitly replicated one does not
+        idx = DTensor.from_local(idx, pe.device_mesh,
+                                 [Replicate()] * pe.device_mesh.ndim,
+                                 run_check=False)
+    return x + pe.index_select(0, idx).reshape(*ids.shape, -1)
 
 
 def _encode(params, batch, cfg):
@@ -289,7 +327,7 @@ def _encode(params, batch, cfg):
     B, F = frames.shape[:2]
     pos = common.sinusoidal_positions(F, cfg.d_model).to(
         device=frames.device, dtype=frames.dtype)
-    x = frames + pos[None]
+    x = constrain(frames + pos[None], ("batch", "seq", "act_embed"))
     positions = torch.arange(F, dtype=torch.int32,
                              device=x.device)[None].expand(B, F)
     enc = params["encoder"]
@@ -361,6 +399,31 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda"):
     return cache
 
 
+def _block_cache_axes(cfg, i: int):
+    mixer, _ = cfg.pattern[i]
+    if mixer in MIXERS_WITH_KV:
+        return attention.kv_cache_logical_axes(
+            quantized=cfg.kv_cache_dtype == "int8")
+    if mixer == BlockKind.RGLRU:
+        return rglru.rglru_state_logical_axes()
+    if mixer == BlockKind.MLSTM:
+        return xlstm.mlstm_state_logical_axes()
+    if mixer == BlockKind.SLSTM:
+        return xlstm.slstm_state_logical_axes()
+    raise ValueError(mixer)
+
+
+def cache_logical_axes(cfg: ModelConfig):
+    """The logical axes of ``init_cache``'s tree: each block's, behind the
+    stacked ``layers`` axis, and ``enc_out`` for an encoder-decoder."""
+    axes = {f"b{i}": map_axes(lambda a: ("layers",) + a,
+                              _block_cache_axes(cfg, i))
+            for i in range(len(cfg.pattern))}
+    if cfg.is_encoder_decoder:
+        axes["enc_out"] = ("batch", None, "act_embed")
+    return axes
+
+
 def _logits(params, x, cfg):
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = (params["unembed"] if "unembed" in params
@@ -369,7 +432,8 @@ def _logits(params, x, cfg):
     # values is exact in float32, so this is the reference's einsum with
     # ``preferred_element_type=float32``
     logits = torch.einsum("bsd,vd->bsv", x.float(), table.to(x.dtype).float())
-    return common.soft_cap(logits, cfg.logits_softcap)
+    logits = common.soft_cap(logits, cfg.logits_softcap)
+    return constrain(logits, ("batch", None, "act_vocab"))
 
 
 # per serving call, the attention variant (it updates its cache slice in
@@ -427,6 +491,7 @@ def lm_decode_step(params, tokens, positions, cfg: ModelConfig, cache):
     x = common.embed(params["embed"], tokens, cfg)
     if cfg.is_encoder_decoder:
         x = _add_dec_positions(params, x, positions[:, :1])
+    x = constrain(x, ("batch", None, "act_embed"))
     x = _run_layers(params, x, positions, cfg, cache, "decode",
                     cache.get("enc_out"))
     return _logits(params, x, cfg), cache
@@ -442,6 +507,7 @@ def lm_append(params, tokens, positions, cfg: ModelConfig, cache):
     x = common.embed(params["embed"], tokens, cfg)
     if cfg.is_encoder_decoder:
         x = _add_dec_positions(params, x, positions)
+    x = constrain(x, ("batch", "seq", "act_embed"))
     x = _run_layers(params, x, positions, cfg, cache, "append",
                     cache.get("enc_out"))
     return _logits(params, x, cfg), cache

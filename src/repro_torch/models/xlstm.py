@@ -18,7 +18,10 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops, ref
-from repro_torch.models.common import param, rms_norm, zeros_param
+from repro_torch.models.common import (merge_dims, param, rms_norm,
+                                      split_dim, zeros_param)
+from repro_torch.sharding.rules import \
+    with_sharding_constraint_logical as constrain
 
 
 # ---------------------------------------------------------------------------
@@ -34,15 +37,15 @@ def init_mlstm_block(cfg):
     m = _inner(cfg)
     H = cfg.num_heads
     return {
-        "w_up": param((d, m)),
-        "w_gate": param((d, m)),
-        "wq": param((m, m)),
-        "wk": param((m, m)),
-        "wv": param((m, m)),
-        "w_if": param((m, 2 * H), scale=0.02),
-        "b_if": zeros_param((2 * H,)),
-        "out_norm": zeros_param((m // H,)),
-        "w_down": param((m, d)),
+        "w_up": param((d, m), ("embed", "rec_width")),
+        "w_gate": param((d, m), ("embed", "rec_width")),
+        "wq": param((m, m), ("rec_width", "qout")),
+        "wk": param((m, m), ("rec_width", "qout")),
+        "wv": param((m, m), ("rec_width", "qout")),
+        "w_if": param((m, 2 * H), ("rec_width", None), scale=0.02),
+        "b_if": zeros_param((2 * H,), (None,)),
+        "out_norm": zeros_param((m // H,), ("stats",)),
+        "w_down": param((m, d), ("rec_width", "embed")),
     }
 
 
@@ -51,9 +54,8 @@ def _mlstm_qkv(params, u, cfg):
     H = cfg.num_heads
     hd = m // H
     dt = u.dtype
-    q = (u @ params["wq"].to(dt)).reshape(B, S, H, hd)
-    k = (u @ params["wk"].to(dt)).reshape(B, S, H, hd)
-    v = (u @ params["wv"].to(dt)).reshape(B, S, H, hd)
+    q, k, v = (split_dim(u @ params[w].to(dt), 2, (H, hd))
+               for w in ("wq", "wk", "wv"))
     if_g = u @ params["w_if"].to(dt) + params["b_if"].to(dt)
     i_gate, f_gate = torch.split(if_g.float(), H, dim=-1)  # [B,S,H]
     f_gate = f_gate + 3.0  # forget-gate bias init: remember by default
@@ -64,13 +66,13 @@ def mlstm_block_forward(params, x, cfg, state=None):
     """x [B,S,D] -> (out, new_state (C, n, m), or None from the kernel)."""
     dt = x.dtype
     gate = F.silu(x @ params["w_gate"].to(dt))
-    u = x @ params["w_up"].to(dt)
+    u = constrain(x @ params["w_up"].to(dt), ("batch", "seq", "rec_width"))
     q, k, v, ig, fg = _mlstm_qkv(params, u, cfg)
     hs, new_state = ops.mlstm_scan(q, k, v, ig, fg, state)
     hs = rms_norm(hs, params["out_norm"], cfg.norm_eps)  # per-head norm
-    hs = hs.reshape(x.shape[0], x.shape[1], -1).to(dt)
+    hs = merge_dims(hs, 2).to(dt)
     out = (hs * gate) @ params["w_down"].to(dt)
-    return out, new_state
+    return constrain(out, ("batch", "seq", "act_embed")), new_state
 
 
 def mlstm_decode_step(params, x, cfg, state):
@@ -81,7 +83,7 @@ def mlstm_decode_step(params, x, cfg, state):
     new_state, h = ref.mlstm_decode_step(
         state, q[:, 0], k[:, 0], v[:, 0], ig[:, 0], fg[:, 0])
     h = rms_norm(h[:, None], params["out_norm"], cfg.norm_eps)
-    h = h.reshape(x.shape[0], 1, -1).to(dt)
+    h = merge_dims(h, 2).to(dt)
     out = (h * gate) @ params["w_down"].to(dt)
     return out, new_state
 
@@ -98,6 +100,14 @@ def init_mlstm_state(cfg, batch: int, device="cuda"):
     )
 
 
+def mlstm_state_logical_axes():
+    return (
+        ("batch", "act_kv_heads", "rec_width", None),
+        ("batch", "act_kv_heads", "rec_width"),
+        ("batch", "act_kv_heads"),
+    )
+
+
 # ---------------------------------------------------------------------------
 # sLSTM block
 # ---------------------------------------------------------------------------
@@ -109,12 +119,13 @@ def init_slstm_block(cfg):
     d = cfg.d_model
     H = cfg.num_heads
     hb = d // H
-    p = {"w_out": param((d, d))}
+    p = {"w_out": param((d, d), ("rec_width", "embed"))}
     for g in _GATES:
-        p[f"w_{g}"] = param((d, d))
+        p[f"w_{g}"] = param((d, d), ("embed", "rec_width"))
         # block-diagonal per-head recurrence (xLSTM §2.2)
-        p[f"r_{g}"] = param((H, hb, hb), scale=0.02)
-        p[f"b_{g}"] = zeros_param((d,))
+        p[f"r_{g}"] = param((H, hb, hb), ("act_kv_heads", None, "rec_width"),
+                            scale=0.02)
+        p[f"b_{g}"] = zeros_param((d,), ("rec_width",))
     return p
 
 
@@ -132,7 +143,7 @@ def slstm_block_forward(params, x, cfg, state=None):
         *(pre[g] for g in _GATES), *(params[f"r_{g}"] for g in _GATES),
         state)
     out = hs.to(x.dtype) @ params["w_out"].to(x.dtype)
-    return out, new_state
+    return constrain(out, ("batch", "seq", "act_embed")), new_state
 
 
 def slstm_decode_step(params, x, cfg, state):
@@ -148,3 +159,8 @@ def init_slstm_state(cfg, batch: int, device="cuda"):
 
     return (z(), torch.ones((batch, d), dtype=torch.float32, device=dev),
             z(), z())
+
+
+def slstm_state_logical_axes():
+    ax = ("batch", "rec_width")
+    return (ax, ax, ax, ax)

@@ -15,6 +15,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.sharding.rules import map_axes
 from repro_torch.tree import leaves, tree_map
 
 
@@ -28,6 +29,7 @@ class AdamWConfig:
     clip_norm: float = 1.0
     moment_dtype: str = "float32"
     factored: bool = False  # factored 2nd moment for giant models
+    min_factored_dim: int = 128  # unused, as in the reference
 
 
 def _factorable(shape) -> bool:
@@ -42,6 +44,19 @@ def _param_moment_pairs(params, mu):
             yield from _param_moment_pairs(params[k], mu[k])
     else:
         yield params, mu
+
+
+def opt_state_logical_axes(param_axes, cfg: AdamWConfig):
+    """Optimizer-state logical axes mirror the parameter axes (FSDP: moments
+    shard exactly like their parameter)."""
+    def leaf_axes(ax):
+        if cfg.factored:
+            # factorability needs the shapes: ``train.step`` derives the
+            # factored moments' axes from them
+            raise NotImplementedError
+        return {"m": ax, "v": ax}
+
+    return {"count": (), "mu": map_axes(leaf_axes, param_axes)}
 
 
 def adamw_init(params, cfg: AdamWConfig):

@@ -44,6 +44,12 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 # 1.4 % of its largest entry; the bounds keep a 2-10x margin
 BF16_LOSS_TOL = dict(rtol=2e-4, atol=0)
 BF16_GRAD_REL = 3e-2
+# deeper smoke models in bf16 (13 and 17 layers) carry the rounding
+# differences further: measured on the CPU, every gradient leaf within
+# 15.9 % (recurrentgemma_2b) and 11.0 % (gemma3_4b) of its largest entry,
+# 9.8 % and 7.2 % in relative L2; chatglm3_6b (2 layers) within 1.7 %.
+# The bounds keep about 2x room
+BF16_GRAD_REL_BY_ARCH = {"recurrentgemma_2b": 0.3, "gemma3_4b": 0.25}
 # a few optimizer steps: Adam divides each entry's update by its own
 # gradient scale, so an entry whose gradient is near 0 (|g| ~ eps) turns
 # the gradients' last-bit differences into a visible part of lr (up to
@@ -235,9 +241,14 @@ def test_adamw_update_matches_reference(factored):
 # model: loss, gradients, prefill
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch,dtype", [("paper_consumer", None),
-                                        ("smollm_360m", None),
-                                        ("smollm_360m", "bfloat16")])
+@pytest.mark.parametrize("arch,dtype", [
+    ("paper_consumer", None), ("smollm_360m", None),
+    ("smollm_360m", "bfloat16"),
+    # the RG-LRU's plain backward and the local-attention ring; gemma3's
+    # QK-norm, softcap and local/global pattern; chatglm3's partial RoPE
+    ("recurrentgemma_2b", "float32"), ("recurrentgemma_2b", "bfloat16"),
+    ("gemma3_4b", "float32"), ("gemma3_4b", "bfloat16"),
+    ("chatglm3_6b", "float32"), ("chatglm3_6b", "bfloat16")])
 def test_lm_loss_and_grads_match_reference(arch, dtype):
     jcfg, jparams, tcfg, tparams = _models(arch, dtype)
     b = _batch(jcfg)
@@ -255,7 +266,8 @@ def test_lm_loss_and_grads_match_reference(arch, dtype):
         for t, j in zip(leaves(tg), jax.tree.leaves(jg)):
             j = np.asarray(j, np.float32)
             err = np.abs(t.numpy() - j).max()
-            assert err <= BF16_GRAD_REL * np.abs(j).max(), (err, j.shape)
+            rel = BF16_GRAD_REL_BY_ARCH.get(arch, BF16_GRAD_REL)
+            assert err <= rel * np.abs(j).max(), (err, j.shape)
         return
     np.testing.assert_allclose(float(tl), float(jl), **LOSS_TOL)
     np.testing.assert_allclose(float(tm["xent"]), float(jm["xent"]),
