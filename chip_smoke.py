@@ -99,7 +99,14 @@ Phases, each fatal on failure (no phase catches its own error):
      of qwen2_vl_72b at full width cut to 2 layers (B 1, a 288-token
      prompt with 256 image patches under image M-RoPE ids, 4 decode
      steps), in bf16 and in float32, and ``apply_mrope`` itself at
-     qwen2-vl's q and k shapes; each limit lies between the sound readings
+     qwen2-vl's q and k shapes; from the same draws, float32 gradient
+     gates of recurrentgemma_2b (over ``RG_GRAD_SEEDS``) and
+     granite_moe_1b_a400m (over ``MOE_SEEDS``, the card taking the CPU's
+     expert picks, each of its own that differs a near-tie): the loss,
+     the grad norm, the worst leaf's gradient and the params after one
+     AdamW step of ``launch.train``'s settings on a [2, 32] batch
+     (``GRAD_LIMITS``, TF32 products the control); each limit lies
+     between the sound readings
      and a control's (TF32 products, attention without its masks, the
      RG-LRU without its carry, the mLSTM without its forget-gate decay,
      RoPE over chatglm3's whole head, gemma3 without QK-norm, experts
@@ -119,6 +126,14 @@ Phases, each fatal on failure (no phase catches its own error):
      width) for 8 steps, and ``--resume`` to 10 steps from its last image
      (about 13 GB of checkpoint images in a temporary registry under
      ``build/``, checked for room first and deleted after);
+     ``launch.train --arch recurrentgemma_2b`` and ``--arch
+     granite_moe_1b_a400m`` at full width and depth with the CLI's
+     defaults for 3 steps (``train-rg``: 18 ``rglru`` and 8 flash
+     launches a step; ``train-granite``: 24 flash launches a step; all
+     flash launches on the wgmma route; a 32.2 GB and a 16.0 GB image
+     pushed twice, at step 0 and at the end, fingerprints on the card;
+     init, step walls, peak card memory, snapshot and push seconds and
+     GB/s printed);
      ``repro_torch.launch.serve`` with its defaults (smollm_360m prefill
      and decode); ``launch.serve --arch recurrentgemma_2b`` with its
      defaults and with a 2304-token prompt, each launching ``rglru``,
@@ -175,6 +190,8 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
+import hashlib
 import io
 import json
 import math
@@ -183,6 +200,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -1713,6 +1731,204 @@ RG_SEEDS = (0, 1, 2)
 RG_LIMITS = {"bfloat16": dict(prefill=2e-2, decode=2e-2),
              "float32": dict(prefill=2e-4, decode=2e-4)}
 
+# float32 gradient gates of the two families that train on the card
+# (train_family_paths), in rg_model_phase and moe_model_phase from their
+# draws: one forward and backward of lm_loss on a [2, 32] batch of
+# SyntheticTokenDataset(seed) and one AdamW step of launch.train's
+# settings (lr 3e-4 at step 0, weight decay 0.01, clip 1.0), card against
+# CPU.  Readings: the loss and the grad norm (relative), the worst leaf's
+# relative L2 gradient error, and the params after the step as the
+# relative L2 error of the step's change (Adam's first step moves each
+# entry by about lr times the sign of its gradient, so a near-zero
+# gradient whose sign flips moves one entry by up to 2 lr: the maximum
+# over a billion entries says nothing, the L2 error weighs how many
+# flip).  The control lets cuBLAS round its float32 inputs to TF32.
+# PERF.md (the two families' training finding), on an H100 over each
+# arch's seeds, worst sound / least control: recurrentgemma_2b loss
+# 7.7e-7 / 1.1e-5, grad norm 6.5e-6 /
+# 1.5e-5 (TF32's errors mostly cancel in the norm: its limit has 1.5x
+# room on either side), grads 4.3e-5 / 1.8e-3, params 5.1e-4 / 2.4e-2;
+# granite_moe_1b_a400m loss 0 / 3.3e-6, grad norm 6.8e-8 / 1.6e-5, grads
+# 3.8e-6 / 2.1e-3, params 5.9e-5 / 2.1e-2.
+GRAD_LIMITS = {
+    "recurrentgemma_2b": dict(loss=3e-6, grad_norm=1e-5, grads=3e-4,
+                              params=3e-3),
+    "granite_moe_1b_a400m": dict(loss=1e-6, grad_norm=1e-6, grads=1e-4,
+                                 params=1e-3),
+}
+# two of RG_SEEDS, for the script's time: the CPU's gradient and AdamW
+# step of the 13-layer model (1.7 B params) take 40-47 s a seed on the
+# 8-core host of an H100 machine
+RG_GRAD_SEEDS = (0, 1)
+# a card's own expert pick that differs from the CPU's must be a near-tie
+# in the CPU's float32 router probabilities: within PICK_TIE, relative
+PICK_TIE = 1e-5
+
+
+class FollowPicks:
+    """granite's gradient gate: the CPU run's expert picks and router
+    probabilities recorded in call order (``host``), and the card's runs
+    made to take them (``card``), so that a float32 near-tie cannot swap
+    an expert and move a whole token's gradient.  The card's own picks
+    that differ are counted; in a sound run (``strict``) each must be a
+    near-tie (``PICK_TIE``), else the phase fails."""
+
+    def __init__(self):
+        self.picks = []
+        self.differ = self.total = 0
+        self.gap = 0.0  # the largest relative gap of a differing pick
+
+    @contextlib.contextmanager
+    def host(self):
+        from repro_torch.models import moe
+
+        plain = moe.top_k
+
+        def recording(probs, k):
+            vals, ids = plain(probs, k)
+            self.picks.append((probs.detach().clone(), ids.clone()))
+            return vals, ids
+
+        moe.top_k = recording
+        try:
+            yield
+        finally:
+            moe.top_k = plain
+
+    @contextlib.contextmanager
+    def card(self, strict: bool):
+        from repro_torch.models import moe
+
+        plain = moe.top_k
+        queue = list(self.picks)
+        self.differ = self.total = 0
+        self.gap = 0.0
+
+        def following(probs, k):
+            own = plain(probs, k)[1].cpu()
+            host_probs, ids = queue.pop(0)
+            self.total += ids.numel()
+            for at in map(tuple, (own != ids).nonzero().tolist()):
+                row = host_probs[at[:-1]]
+                a, b = float(row[ids[at]]), float(row[own[at]])
+                self.gap = max(self.gap, abs(a - b) / max(a, b))
+                check(not strict or abs(a - b) <= PICK_TIE * max(a, b),
+                      f"granite gradient gate: the card picks expert "
+                      f"{int(own[at])} ({b:.9g}) over the CPU's "
+                      f"{int(ids[at])} ({a:.9g}) at {at}: no near-tie")
+                self.differ += 1
+            ids = ids.to(probs.device)
+            return torch.gather(probs, -1, ids), ids
+
+        moe.top_k = following
+        try:
+            yield
+        finally:
+            moe.top_k = plain
+        check(not queue, f"granite gradient gate: {len(queue)} router calls "
+              "of the CPU run not made on the card")
+
+
+def grad_step(cfg, params, seed: int, device: str):
+    """One float32 forward and backward of ``lm_loss`` on a [2, 32] batch
+    of ``SyntheticTokenDataset(seed)``, then one AdamW step with
+    ``launch.train``'s settings at step 0, in place on ``params``.
+    -> (loss, gradients in leaf order, grad norm)."""
+    import dataclasses
+
+    from repro_torch.convert import to_tensor
+    from repro_torch.data import DataConfig, SyntheticTokenDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import cosine_schedule
+    from repro_torch.tree import flatten, unflatten
+
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    batch = SyntheticTokenDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=32, global_batch=2,
+        seed=seed)).batch(0)
+    batch = {k: to_tensor(a, device) for k, a in batch.items()}
+    flat, treedef = flatten(params)
+    with torch.enable_grad():
+        inputs = [p.detach().requires_grad_() for p in flat]
+        loss, _ = T.lm_loss(unflatten(treedef, inputs), batch, cfg)
+        grads = torch.autograd.grad(loss, inputs)
+    del inputs
+    opt_cfg = adamw.AdamWConfig(weight_decay=0.01)
+    lr = cosine_schedule(torch.tensor(0, dtype=torch.int32, device=device),
+                         peak=3e-3, warmup_steps=10, total_steps=3)
+    _, _, met = adamw.adamw_update(params, unflatten(treedef, list(grads)),
+                                   adamw.adamw_init(params, opt_cfg),
+                                   opt_cfg, lr=lr)
+    return float(loss.detach()), grads, float(met["grad_norm"])
+
+
+def grad_gate(arch, cfg, params, on_card, seed: int, launches: dict,
+              follow=None):
+    """The float32 gradient gate of ``arch`` (``GRAD_LIMITS``) for one
+    seed: ``grad_step`` on the CPU from ``params``, on the card from a
+    copy of ``on_card`` (sound) and from ``on_card`` itself with TF32
+    products (the control), each card run launching ``launches`` (flash
+    on the float32 route); ``follow`` (``FollowPicks``) makes the card
+    take the CPU's expert picks.  Both trees are updated in place (this
+    is their last use).  -> (sound readings, control readings)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.tree import leaves, tree_map
+
+    t0 = time.perf_counter()
+    with follow.host() if follow else contextlib.nullcontext():
+        h_loss, h_grads, h_norm = grad_step(cfg, params, seed, "cpu")
+    t_host = time.perf_counter() - t0
+    h_params = leaves(params)
+    # the CPU step's change, against the card's untouched copy of the init
+    step_sq = sum(float((h.to("cuda") - c).double().square().sum())
+                  for h, c in zip(h_params, leaves(on_card)))
+    out = []
+    for control in (False, True):
+        card = on_card if control else tree_map(torch.clone, on_card)
+        reset_counts()
+        torch.backends.cuda.matmul.allow_tf32 = control
+        try:
+            with (follow.card(strict=not control) if follow
+                  else contextlib.nullcontext()):
+                loss, grads, norm = grad_step(cfg, card, seed, "cuda")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        n = read_counts()
+        check({k: n[k] for k in launches} == launches
+              and fa.WGMMA_LAUNCHES == 0,
+              f"{arch} gradient gate: launches {n}, "
+              f"{fa.WGMMA_LAUNCHES} on the wgmma route, want {launches} "
+              "on the float32 route")
+        check(math.isfinite(loss) and math.isfinite(norm)
+              and all(bool(torch.isfinite(g).all()) for g in grads),
+              f"{arch} gradient gate: loss, grad norm or a gradient on the "
+              "card not finite")
+        rel = []
+        for g, h in zip(grads, h_grads):
+            h = h.to("cuda")
+            d, ref = float((g - h).double().norm()), float(h.double().norm())
+            rel.append(d / ref if ref else (0.0 if d == 0 else math.inf))
+        diff_sq = sum(float((c - h.to("cuda")).double().square().sum())
+                      for c, h in zip(leaves(card), h_params))
+        out.append({"loss": abs(loss - h_loss) / abs(h_loss),
+                    "grad_norm": abs(norm - h_norm) / abs(h_norm),
+                    "grads": max(rel),
+                    "params": math.sqrt(diff_sq / step_sq)})
+        label = "control (TF32)" if control else "card vs CPU"
+        picks = (f"; the card's own expert picks differing from the CPU's: "
+                 f"{follow.differ} of {follow.total} (largest gap in the "
+                 f"CPU's probabilities {follow.gap:.2e}, relative)"
+                 if follow else "")
+        print(f"[model] {arch} {cfg.num_layers} layers float32 gradient "
+              f"gate, {label}, seed {seed}: " + " ".join(
+                  f"{k}={v:.3e}" for k, v in out[-1].items())
+              + f" (loss {loss:.6f}, grad norm {norm:.6f}){picks}"
+              + (f" (CPU run {t_host:.1f} s)" if not control else ""))
+        del card, grads
+    return out
+
+
 KERNELS = ("decode_attention", "fingerprint_lanes", "xor_fp_lanes",
            "int8_fp_lanes", "flash_attention", "rglru", "slstm", "mlstm")
 CODEC = ("xor_fp_lanes", "int8_fp_lanes")
@@ -1871,6 +2087,187 @@ def train_paths(paths) -> None:
           and launches["decode_attention"] == 32 * cfg.num_layers,
           f"serve: launches {launches}, want one prefill and 32 decode "
           "steps")
+
+
+TRAIN_FAMILY_STEPS = 3
+
+
+def train_family_path(paths, label: str, arch: str, per_step: dict) -> None:
+    """``launch.train --arch <arch>`` at full width and depth with the
+    CLI's defaults (batch 8, seq 128, bf16 compute, float32 params, AdamW)
+    for ``TRAIN_FAMILY_STEPS`` steps: rc 0, a finite final loss, exactly
+    ``per_step`` launches a step and no other kernel but the fingerprint
+    kernel, which the pushes launch (the step-0 snapshot's fingerprints on
+    the card, then the final blocking push's), every flash launch on the
+    wgmma route.  Prints init seconds, each step's wall, the peak card
+    memory, the snapshot's seconds and each push's bytes and GB/s."""
+    import re
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import checkpointer as ckpt_mod
+    from repro_torch.checkpoint import registry as registry_mod
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+
+    cfg = configs.get_config(arch)
+    image_bytes = 12 * cfg.param_count()  # params, m and v in float32
+    # both images in the memory store
+    need = 2 * image_bytes + 2 * 2 ** 30
+    with open("/proc/meminfo") as f:
+        free = 1024 * int(next(line for line in f if line.startswith(
+            "MemAvailable:")).split()[1])
+    print(f"[path] {label}: {cfg.param_count()} params, image {image_bytes} "
+          f"bytes, pushed twice (the step-0 image, then the final one) into "
+          f"host memory; {free} bytes of host memory available")
+    check(free >= need, f"{label}: {free} bytes of host memory available, "
+          f"need {need} for two checkpoint images")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_",
+                            dir=build.BUILD_DIR)
+    pushes, saves, inits = [], [], []
+    plain_push = registry_mod.Registry.push_image
+    plain_save = ckpt_mod.Checkpointer.save
+    # the push's host side in parts: a leaf's bytes as a host byte view
+    # (``leaf_view``: a copy from the card, none from the snapshot's host
+    # copy), its fingerprints where the push takes them (the blocking
+    # push), its chunks' sha256 keys (``hash``, on the host's cores) and
+    # each chunk's store (``put``)
+    parts = {"leaf_view": 0.0, "fingerprints": 0.0, "hash": 0.0,
+             "put": 0.0}
+
+    def timing(fn, part):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                parts[part] += time.perf_counter() - t0
+        return run
+
+    class MemoryChunkStore(registry_mod.ChunkStore):
+        """The chunks in host memory: the machine's disk takes 45 GiB of
+        writes a call, and these paths push 96.4 GB (two images each)."""
+
+        def __init__(self, root):
+            self.root, self._lock, self._blobs = root, threading.Lock(), {}
+
+        def has(self, key):
+            return key in self._blobs
+
+        @functools.partial(timing, part="put")
+        def put(self, data, key=None):
+            key = key or hashlib.sha256(data).hexdigest()
+            with self._lock:
+                new = key not in self._blobs
+                if new:
+                    self._blobs[key] = bytes(data)
+            return key, new
+
+        def get(self, key):
+            return self._blobs[key]
+
+    patched = ((registry_mod._codecs, "leaf_view",
+                timing(registry_mod._codecs.leaf_view, "leaf_view")),
+               (registry_mod, "leaf_fingerprints",
+                timing(registry_mod.leaf_fingerprints, "fingerprints")),
+               (registry_mod, "_chunk_keys",
+                timing(registry_mod._chunk_keys, "hash")),
+               (registry_mod, "ChunkStore", MemoryChunkStore))
+    plain_fns = [getattr(obj, name) for obj, name, _ in patched]
+    for obj, name, fn in patched:
+        setattr(obj, name, fn)
+
+    def timed_push(self, trees, *args, **kwargs):
+        t0 = time.perf_counter()
+        rep = plain_push(self, trees, *args, **kwargs)
+        pushes.append((time.perf_counter() - t0, rep.total_bytes))
+        return rep
+
+    def timed_save(self, step, trees, meta=None, block=False):
+        t0 = time.perf_counter()
+        out = plain_save(self, step, trees, meta, block)
+        saves.append((step, block, time.perf_counter() - t0))
+        return out
+
+    registry_mod.Registry.push_image = timed_push
+    ckpt_mod.Checkpointer.save = timed_save
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        argv = ["--arch", arch, "--steps", str(TRAIN_FAMILY_STEPS),
+                "--ckpt-every", "100", "--log-every", "1", "--registry",
+                root]
+        with timed_init(inits):
+            launches, (rc, text), wall = run_path(
+                label, lambda: _captured(train.main, argv),
+                tuple(per_step) + ("fingerprint_lanes",), "wgmma")
+    finally:
+        registry_mod.Registry.push_image = plain_push
+        ckpt_mod.Checkpointer.save = plain_save
+        for (obj, name, _), fn in zip(patched, plain_fns):
+            setattr(obj, name, fn)
+        shutil.rmtree(root, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    paths[label] = launches
+    check(rc == 0, f"{label}: launch.train exited {rc}")
+    loss = float(text.split("[train] done; final loss")[1].split()[0])
+    check(math.isfinite(loss), f"{label}: final loss {loss}")
+    want = {k: TRAIN_FAMILY_STEPS * per_step.get(k, 0) for k in launches}
+    want["fingerprint_lanes"] = launches["fingerprint_lanes"]
+    check(launches == want and launches["fingerprint_lanes"] > 0,
+          f"{label}: launches {launches}, want {want} with at least one "
+          "fingerprint_lanes launch")
+    steps = [int(ms) for ms in re.findall(
+        r"\[train\] step +\d+ loss \S+ lr \S+ gnorm \S+ (\d+)ms", text)]
+    check(len(steps) == TRAIN_FAMILY_STEPS, f"{label}: {len(steps)} step "
+          "lines")
+    check(len(inits) == 1 and len(pushes) == 2,
+          f"{label}: {len(inits)} init_lm calls and {len(pushes)} pushes, "
+          "want 1 and 2")
+    (init_s, n), = inits
+    print(f"[path] {label}: rc={rc} final_loss={loss:.4f} per step "
+          f"{per_step}; init {init_s:.3f} s ({n / init_s / 1e6:.0f} M "
+          f"params/s); step walls {steps} ms; peak card memory {peak} "
+          f"bytes; path wall {wall:.3f} s")
+    for step, block, dt in saves:
+        what = ("blocking: waits for the pending push, then pushes"
+                if block else "snapshot: fingerprints on the card, bytes "
+                "to host")
+        print(f"[path] {label}: save at step {step} ({what}) {dt:.3f} s")
+    for dt, nbytes in pushes:
+        # params, m and v in float32 and AdamW's int32 count
+        check(nbytes == 12 * n + 4, f"{label}: a push of {nbytes} bytes, "
+              f"want {12 * n + 4}")
+        print(f"[path] {label} checkpoint push: {nbytes} bytes in {dt:.3f} "
+              f"s ({nbytes / dt / 1e9:.3f} GB/s)")
+    print(f"[path] {label}: both pushes' host side, s: " + " ".join(
+        f"{k}={v:.3f}" for k, v in parts.items()))
+
+
+def train_family_paths(paths) -> None:
+    """``train-rg`` (recurrentgemma_2b: 18 ``rglru`` and 8
+    ``flash_attention`` launches a step) and ``train-granite``
+    (granite_moe_1b_a400m: 24 ``flash_attention`` launches a step)
+    through ``train_family_path``; the first trainer is freed and the
+    card's cache emptied before the second (43 and 21 GB of state and
+    gradients must not sit on the card together)."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.models import BlockKind
+
+    rg = configs.get_config("recurrentgemma_2b")
+    n_rec = rg.num_groups * sum(m == BlockKind.RGLRU for m, _ in rg.pattern)
+    for label, arch, per_step in (
+            ("train-rg", "recurrentgemma_2b",
+             dict(rglru=n_rec, flash_attention=rg.num_layers - n_rec)),
+            ("train-granite", "granite_moe_1b_a400m",
+             dict(flash_attention=configs.get_config(
+                 "granite_moe_1b_a400m").num_layers))):
+        train_family_path(paths, label, arch, per_step)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[path] {label}: {torch.cuda.memory_allocated()} bytes "
+              "still allocated on the card after the path")
 
 
 SHARDED_TRAIN_STEPS = 4
@@ -2130,6 +2527,7 @@ def rg_model_phase() -> None:
     n_attn = len(cfg.pattern) - n_rec
     sound = {dtype: [] for dtype in RG_LIMITS}
     ctl = {dtype: [] for dtype in RG_LIMITS}
+    grad = {"float32": []}, {"float32": []}
     for seed in RG_SEEDS:
         params, on_card = host_and_card(cfg, seed, "recurrentgemma_2b")
         for dtype in RG_LIMITS:
@@ -2155,7 +2553,14 @@ def rg_model_phase() -> None:
                       f"{label}, seed {seed}: " + " ".join(
                           f"{k}={v:.3e}" for k, v in out[dtype][-1].items())
                       + (f" (CPU run {t_host:.1f} s)" if not control else ""))
+        if seed in RG_GRAD_SEEDS:
+            for out, r in zip(grad, grad_gate(
+                    "recurrentgemma_2b", cfg, params, on_card, seed,
+                    dict(rglru=n_rec, flash_attention=n_attn))):
+                out["float32"].append(r)
         del params, on_card
+    check_limits("recurrentgemma_2b gradient gate",
+                 {"float32": GRAD_LIMITS["recurrentgemma_2b"]}, *grad)
     for dtype, limits in RG_LIMITS.items():
         for name, limit in limits.items():
             worst = max(r[name] for r in sound[dtype])
@@ -2927,6 +3332,7 @@ def moe_model_phase() -> None:
             cfg.num_groups)
         sound = {dtype: [] for dtype in MOE_LIMITS[arch]}
         ctl = {dtype: [] for dtype in MOE_LIMITS[arch]}
+        grad = {"float32": []}, {"float32": []}
         for seed in MOE_SEEDS:
             params, on_card = host_and_card(cfg, seed, arch)
             for dtype in MOE_LIMITS[arch]:
@@ -2980,8 +3386,17 @@ def moe_model_phase() -> None:
                           + (f"; prefill drops per layer at capacity {cap}: "
                              f"{drops} (CPU run {t_host:.1f} s)"
                              if not control else ""))
+            if arch in GRAD_LIMITS:
+                for out, r in zip(grad, grad_gate(
+                        arch, cfg, params, on_card, seed,
+                        dict(flash_attention=cfg.num_layers),
+                        FollowPicks())):
+                    out["float32"].append(r)
             del params, on_card
         check_limits(arch, MOE_LIMITS[arch], sound, ctl)
+        if arch in GRAD_LIMITS:
+            check_limits(f"{arch} gradient gate",
+                         {"float32": GRAD_LIMITS[arch]}, *grad)
 
 
 def moe_serve_paths(paths) -> None:
@@ -3440,7 +3855,8 @@ def main() -> int:
               "--compression", "int8"], "serving-int8",
              ("decode_attention", "xor_fp_lanes", "int8_fp_lanes"))):
         paths[label] = path_phase(argv, label, needs)
-    for phase in (train_paths, sharded_1x1_phase, rg_serve_paths, xl_paths,
+    for phase in (train_paths, train_family_paths, sharded_1x1_phase,
+                  rg_serve_paths, xl_paths,
                   dense_serve_paths,
                   moe_serve_paths, whisper_serve_paths, qvl_serve_path,
                   trainer_migration_paths):

@@ -14,8 +14,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.checkpoint.fingerprint import leaf_fingerprints
 from repro_torch.checkpoint.registry import PushReport, Registry
-from repro_torch.tree import tree_map
+from repro_torch.tree import flatten, unflatten
 
 
 class Checkpointer:
@@ -38,30 +39,40 @@ class Checkpointer:
 
     def save(self, step: int, trees: Dict[str, Any],
              meta: Optional[dict] = None, block: bool = False):
-        # snapshot synchronously, push async.  The snapshot is a clone on
-        # the tensor's own device (the caller goes on updating in place):
-        # a CUDA snapshot's chunk fingerprints then run on the card, and
-        # its bytes leave the card only as the push serializes them
-        snap = tree_map(
-            lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x,
-            trees)
         meta = dict(meta or {})
         meta["step"] = step
         meta["worker"] = self.name
-
-        def _push() -> PushReport:
-            report = self.registry.push_image(
-                snap, meta, tag=f"{self.name}:latest")
-            with self._lock:
-                if self._latest is None or step >= self._latest[0]:
-                    self._latest = (step, report.image_id)
-            return report
-
-        fut = self._pool.submit(_push)
-        self._pending = fut
         if block:
-            return fut.result()
+            # the caller waits, so nothing changes the tensors during the
+            # push: after any pending push, they are pushed as they are
+            # (fingerprints on their own device) with no copy
+            self.wait()
+            return self._push(step, trees, meta, None)
+        # snapshot synchronously, push async.  Each leaf's chunk
+        # fingerprints are taken now on its own device (the kernel for a
+        # CUDA tensor), and its bytes are copied to host memory now: the
+        # caller goes on updating in place, and the card never holds a
+        # second copy of the state beside the step's working memory
+        snap, fps = {}, {}
+        for name, tree in trees.items():
+            flat, treedef = flatten(tree)
+            fps[name] = [leaf_fingerprints(x, self.registry.chunk_bytes)
+                         for x in flat]
+            snap[name] = unflatten(treedef, [
+                x.detach().to("cpu", copy=True)
+                if isinstance(x, torch.Tensor) else x for x in flat])
+        fut = self._pool.submit(self._push, step, snap, meta, fps)
+        self._pending = fut
         return fut
+
+    def _push(self, step: int, trees, meta: dict, fps) -> PushReport:
+        report = self.registry.push_image(trees, meta,
+                                          tag=f"{self.name}:latest",
+                                          leaf_fps=fps)
+        with self._lock:
+            if self._latest is None or step >= self._latest[0]:
+                self._latest = (step, report.image_id)
+        return report
 
     def wait(self):
         if self._pending is not None:

@@ -55,13 +55,21 @@ def codec_backend() -> str:
     return backend
 
 
-def leaf_raw(leaf) -> bytes:
-    """C-order raw bytes of a leaf (tensors leave their device here)."""
+def leaf_view(leaf) -> memoryview:
+    """The C-order raw bytes of a leaf as a byte view: no copy of a
+    contiguous host tensor (the view aliases it: it must not change
+    until the caller is done with the view), one copy from a device
+    (tensors leave their device here)."""
     if isinstance(leaf, torch.Tensor):
         # a byte view: bfloat16 has no numpy dtype, and .numpy() of it fails
         flat = leaf.detach().contiguous().reshape(-1)
-        return flat.view(torch.uint8).cpu().numpy().tobytes()
-    return np.asarray(leaf).tobytes()
+        return memoryview(flat.view(torch.uint8).cpu().numpy())
+    return memoryview(np.asarray(leaf).tobytes())
+
+
+def leaf_raw(leaf) -> bytes:
+    """C-order raw bytes of a leaf (tensors leave their device here)."""
+    return leaf_view(leaf).tobytes()
 
 
 def _rle_encode(x: np.ndarray) -> bytes:

@@ -46,10 +46,12 @@ for the delta.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -105,9 +107,11 @@ class ChunkStore:
     def has(self, key: str) -> bool:
         return os.path.exists(self._path(key))
 
-    def put(self, data: bytes) -> Tuple[str, bool]:
-        """-> (key, newly_written)."""
-        key = hashlib.sha256(data).hexdigest()
+    def put(self, data: bytes, key: Optional[str] = None
+            ) -> Tuple[str, bool]:
+        """-> (key, newly_written); ``key``, where given, is the sha256 of
+        ``data``, taken beforehand."""
+        key = key or hashlib.sha256(data).hexdigest()
         path = self._path(key)
         with self._lock:
             if os.path.exists(path):
@@ -122,6 +126,26 @@ class ChunkStore:
     def get(self, key: str) -> bytes:
         with open(self._path(key), "rb") as f:
             return f.read()
+
+
+@functools.lru_cache(maxsize=None)
+def _hash_pool() -> ThreadPoolExecutor:
+    # one core left to the caller: a trainer's steps go on beside an
+    # async push
+    return ThreadPoolExecutor(max_workers=max(1, (os.cpu_count() or 2) - 1),
+                              thread_name_prefix="chunk-sha256")
+
+
+def _chunk_keys(data, cb: int, chunks: List[int]) -> Dict[int, str]:
+    """The sha256 keys of chunks ``chunks`` of ``data``, hashed on the
+    host's cores at once (hashlib lets go of the GIL over a chunk): a
+    push's host side is bound by hashing on one core otherwise."""
+    def key(c):
+        return hashlib.sha256(data[c * cb: (c + 1) * cb]).hexdigest()
+
+    if len(chunks) < 2:
+        return {c: key(c) for c in chunks}
+    return dict(zip(chunks, _hash_pool().map(key, chunks)))
 
 
 def _resolve_dtype(name: str):
@@ -210,7 +234,8 @@ class Registry:
               tag: Optional[str], parent: Optional[str], *,
               compression: CompressionSpec = "none",
               lossy_ok: bool = False,
-              fingerprints: bool = True) -> PushReport:
+              fingerprints: bool = True,
+              leaf_fps: Optional[Dict[str, list]] = None) -> PushReport:
         _codecs.validate_compression(compression)
         parent_manifest = self._manifest(parent) if parent else None
         parent_keys = (set(self.image_chunks(parent))
@@ -240,9 +265,12 @@ class Registry:
                         if fingerprints else None)
                 if fenc is not None:
                     fps = fenc.fps
+                elif not fingerprints:
+                    fps = None
+                elif leaf_fps is not None:
+                    fps = leaf_fps[name][i]
                 else:
-                    fps = (leaf_fingerprints(leaf, cb)
-                           if fingerprints else None)
+                    fps = leaf_fingerprints(leaf, cb)
                 if fps is not None:
                     fp_bytes += nbytes
                 fp_list = (None if fps is None
@@ -268,10 +296,14 @@ class Registry:
                     # in fused mode the leaf was already read (and
                     # encoded) on its device; serialization happens lazily
                     # only for incompressible raw-fallback chunks
-                    data = (b"" if fenc is not None
-                            else _codecs.leaf_raw(leaf) if nbytes
-                            else b"")
+                    data = (b"" if fenc is not None or not nbytes
+                            else _codecs.leaf_view(leaf)
+                            if codec_name == "none"
+                            else _codecs.leaf_raw(leaf))
                     codec = _codecs.get_codec(codec_name)
+                    keys = (_chunk_keys(data, cb, [c for c in range(n)
+                                                   if not clean[c]])
+                            if codec_name == "none" else {})
                     for c in range(n):
                         seg_len = min(cb, nbytes - c * cb)
                         if clean[c]:
@@ -306,7 +338,7 @@ class Registry:
                                     # fingerprint would misrepresent it
                                     if fp_list is not None:
                                         fp_list[c] = None
-                        key, new = self.store.put(blob)
+                        key, new = self.store.put(blob, keys.get(c))
                         entry["key"] = key
                         entry["wire"] = len(blob)
                         if new:
@@ -348,9 +380,15 @@ class Registry:
 
     def push_image(self, trees: Dict[str, Any], meta: Optional[dict] = None,
                    tag: Optional[str] = None, *,
-                   fingerprints: bool = True) -> PushReport:
+                   fingerprints: bool = True,
+                   leaf_fps: Optional[Dict[str, list]] = None) -> PushReport:
+        """A full image of ``trees``.  ``leaf_fps`` (``{tree name: [one
+        leaf_fingerprints(leaf, chunk_bytes) a leaf, in flatten order]}``)
+        gives fingerprints taken beforehand, on the device the leaves
+        were copied from (``Checkpointer``'s host snapshots), instead of
+        taking them here."""
         return self._push(trees, meta, tag, parent=None,
-                          fingerprints=fingerprints)
+                          fingerprints=fingerprints, leaf_fps=leaf_fps)
 
     def push_delta(self, trees: Dict[str, Any], parent_image_id: str,
                    meta: Optional[dict] = None,

@@ -1,16 +1,27 @@
 """End-to-end training CLI.
 
 Port of ``repro.launch.train``, with the reference's flags, defaults and
-printed lines, plus ``--device`` (``cuda`` by default: the flash-attention
-kernel (smollm_360m, paper_consumer) or the mLSTM and sLSTM kernels
-(``--arch xlstm_350m``: one launch per layer a forward; the backward runs
-their plain versions, as the reference has no backward kernel) and, for
-every checkpoint push, the fingerprint kernel run on the card; ``cpu``
-runs their plain versions).
+printed lines, plus ``--device``.  ``cuda`` (the default) runs every
+family's forward through the hand-written kernels: the flash-attention
+kernel in every attention layer (smollm_360m, paper_consumer, the local
+layers of recurrentgemma_2b, granite_moe_1b_a400m), the RG-LRU kernel
+once per recurrent layer (``--arch recurrentgemma_2b``) and the mLSTM and
+sLSTM kernels (``--arch xlstm_350m``).  Their backward passes run the
+plain versions, as the reference has no backward kernel: the RG-LRU's
+recomputes its scan step by step, and holds most of a recurrentgemma
+step's wall.  Every checkpoint push fingerprints its leaves with the
+fingerprint kernel on the card.  ``cpu`` runs the plain versions.
+
+MoE configs (granite_moe_1b_a400m, llama4_maverick_400b_a17b) add the
+router's auxiliary loss (``router_aux_coef`` times the Switch loss and
+z-loss) to the cross-entropy, as the reference does; their gradients
+through the dispatch and combine gathers run under deterministic mode on
+the card and are held card against CPU in float32 (``chip_smoke.py``'s
+gradient gate) and against the reference on the CPU.
 
 Fault tolerance wired in:
   * periodic async checkpoints to the registry (images are content-addressed
-    — unchanged chunks dedup to zero upload);
+    — unchanged chunks dedup to zero upload); the final one blocks;
   * restart: ``--resume`` restores the latest image and *replays the batch
     journal* deterministically (the data pipeline is a pure function of
     (seed, step)), i.e. the MS2M recovery path applied to training;
@@ -22,14 +33,10 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm_350m \
       --steps 4 --ckpt-every 100 --registry REG
   PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch recurrentgemma_2b --steps 3 --ckpt-every 100 --registry REG
+  PYTHONPATH=src python -m repro_torch.launch.train \
       --arch granite_moe_1b_a400m --smoke --steps 6 --registry REG \
       --device cpu
-
-MoE configs (granite_moe_1b_a400m, llama4_maverick_400b_a17b) add the
-router's auxiliary loss (``router_aux_coef`` times the Switch loss and
-z-loss) to the cross-entropy; their gradients through the dispatch and
-combine gathers are checked on the CPU against the reference, not yet on
-the card.
 """
 from __future__ import annotations
 

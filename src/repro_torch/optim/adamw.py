@@ -86,9 +86,13 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
+def _clip_scale(norm, max_norm: float):
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = _clip_scale(norm, max_norm)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
 
@@ -109,7 +113,8 @@ def _vhat(mu_v, g2, b2, shape):
 def adamw_update(params, grads, state, cfg: AdamWConfig, lr=None):
     """-> (params, state, metrics), params float32 leaves.  ``params`` and
     ``state`` are updated in place and returned."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, cfg.clip_norm)
     state["count"].add_(1)
     count = state["count"].float()
     lr = cfg.lr if lr is None else lr
@@ -119,20 +124,24 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr=None):
 
     pairs = list(_param_moment_pairs(params, state["mu"]))
     for (p, mu), g in zip(pairs, leaves(grads)):
-        g = g.float()
+        # clip_by_global_norm leaf by leaf: the same bits, with no second
+        # copy of every gradient alive at once
+        g = (g.float() * scale).to(g.dtype).float()
         m = cfg.b1 * mu["m"].float() + (1 - cfg.b1) * g
         v_old = (mu["v"].float() if not isinstance(mu["v"], dict)
                  else {k: x.float() for k, x in mu["v"].items()})
         new_v, v_full = _vhat(v_old, torch.square(g), cfg.b2, p.shape)
-        mhat = m / b1c
-        vhat = v_full / b2c
-        step = mhat / (torch.sqrt(vhat) + cfg.eps)
-        new_p = p.float() - lr * (step + cfg.weight_decay * p.float())
-        p.copy_(new_p.to(p.dtype))
+        del g, v_old
+        step = (m / b1c) / (torch.sqrt(v_full / b2c) + cfg.eps)
+        # the moments are stored, and their temporaries freed, before the
+        # params' update: a leaf-sized temporary fewer at the peak
         mu["m"].copy_(m.to(mdt))
         if isinstance(mu["v"], dict):
             for k in mu["v"]:
                 mu["v"][k].copy_(new_v[k].to(mdt))
         else:
             mu["v"].copy_(new_v.to(mdt))
+        del m, new_v, v_full
+        new_p = p.float() - lr * (step + cfg.weight_decay * p.float())
+        p.copy_(new_p.to(p.dtype))
     return params, state, {"grad_norm": gnorm}

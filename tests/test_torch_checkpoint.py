@@ -211,3 +211,45 @@ def test_checkpointer_snapshots_before_the_caller_mutates(tmp_path):
     k = trees["state"]["cache"]["b0"]["k"]
     assert torch.equal(torch.from_numpy(k), before["cache"]["b0"]["k"])
     assert ck.maybe_save(5, {"state": state}) is None
+
+
+@pytest.mark.parametrize("block", [False, True])
+def test_checkpointer_image_equals_a_direct_push(tmp_path, block):
+    """An async save (fingerprints taken on the leaves' device at the
+    save, bytes copied to host memory) and a blocking one (the live
+    tensors pushed with no copy) give the image a direct push of the same
+    state gives: the same manifest, so the same image id."""
+    state = _as_torch(_state(5))
+    want = TRegistry(str(tmp_path / "direct"), chunk_bytes=CHUNK).push_image(
+        {"state": state}, {"step": 3, "worker": "w"}, tag="w:latest")
+    reg = TRegistry(str(tmp_path / "ck"), chunk_bytes=CHUNK)
+    ck = Checkpointer(reg, "w", interval_steps=1)
+    ck.maybe_save(2, {"state": _as_torch(_state(6))})  # a pending push
+    got = ck.save(3, {"state": state}, block=block)
+    if not block:
+        state["extra"]["odd"].mul_(2.0)  # the worker goes on in place
+        got = got.result()
+    assert got.image_id == want.image_id
+    assert (got.total_bytes, got.fp_bytes) == (want.total_bytes,
+                                               want.fp_bytes)
+    assert ck.latest() == (3, want.image_id)
+
+
+def test_chunk_keys_on_the_pool_equal_serial_sha256():
+    """The push hashes a leaf's chunks on a thread pool over a byte view
+    of the leaf: the keys are each chunk's own sha256, the last chunk
+    short, skipped chunks absent."""
+    import hashlib
+
+    from repro_torch.checkpoint import codecs, registry
+
+    leaf = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        10_000).astype(np.float32)).to(torch.bfloat16)
+    view = codecs.leaf_view(leaf)
+    raw = codecs.leaf_raw(leaf)
+    assert bytes(view) == raw and len(raw) == 20_000
+    cb = 1024
+    want = {c: hashlib.sha256(raw[c * cb: (c + 1) * cb]).hexdigest()
+            for c in range(20) if c != 3}
+    assert registry._chunk_keys(view, cb, sorted(want)) == want
+    assert registry._chunk_keys(view, cb, [19]) == {19: want[19]}

@@ -6,6 +6,8 @@ torch finds no CUDA card.  Run them on a machine with one:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import math
+
 import pytest
 import torch
 
@@ -1176,6 +1178,73 @@ def test_train_cli_xlstm_smoke_on_card(cuda, tmp_path, capsys):
                        "--registry", str(tmp_path)]) == 0
     assert (ml.LAUNCHES - m0, sl.LAUNCHES - s0) == (3 * 7, 3 * 1)
     assert "[train] done; final loss" in capsys.readouterr().out
+
+
+def _final_loss(text):
+    loss = float(text.split("[train] done; final loss")[1].split()[0])
+    assert math.isfinite(loss), loss
+    return loss
+
+
+def test_train_cli_recurrentgemma_smoke_on_card(cuda, tmp_path, capsys):
+    """``launch.train --arch recurrentgemma_2b --smoke`` on the card: per
+    step one rglru launch per RG-LRU layer (9) and one flash launch per
+    local-attention layer (4, float32 route); the pushes fingerprint on
+    the card."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.launch import train
+
+    r0, f0, w0, p0 = rg.LAUNCHES, fa.LAUNCHES, fa.WGMMA_LAUNCHES, fp.LAUNCHES
+    assert train.main(["--arch", "recurrentgemma_2b", "--smoke", "--steps",
+                       "3", "--registry", str(tmp_path)]) == 0
+    assert (rg.LAUNCHES - r0, fa.LAUNCHES - f0,
+            fa.WGMMA_LAUNCHES - w0) == (3 * 9, 3 * 4, 0)
+    assert fp.LAUNCHES > p0
+    _final_loss(capsys.readouterr().out)
+
+
+def test_train_cli_granite_smoke_on_card(cuda, tmp_path, capsys):
+    """``launch.train --arch granite_moe_1b_a400m --smoke`` on the card:
+    one flash launch per layer a step (2, float32 route), the MoE
+    gradients through the dispatch and combine gathers under
+    deterministic mode; the pushes fingerprint on the card."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+
+    f0, p0 = fa.LAUNCHES, fp.LAUNCHES
+    assert train.main(["--arch", "granite_moe_1b_a400m", "--smoke",
+                       "--steps", "3", "--registry", str(tmp_path)]) == 0
+    assert fa.LAUNCHES - f0 == 3 * 2
+    assert fp.LAUNCHES > p0
+    _final_loss(capsys.readouterr().out)
+
+
+def test_checkpointer_snapshot_leaves_the_card(cuda, tmp_path):
+    """An async save takes each leaf's fingerprints on the card (one
+    kernel launch a leaf) and copies its bytes to host memory: the card
+    holds no second copy of the state, and the image is the one a
+    blocking push of the same tensors gives."""
+    from repro_torch.checkpoint import Checkpointer, Registry
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = {"w": torch.randn((64, 1024, 1024), device=cuda, generator=gen),
+             "b": torch.randn((3, 77), device=cuda, generator=gen)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ck = Checkpointer(Registry(str(tmp_path / "a")), "w")
+    p0 = fp.LAUNCHES
+    fut = ck.save(1, {"state": state})
+    assert fp.LAUNCHES - p0 == 2
+    # fingerprints and their scratch, not a copy of the 268 MB state
+    assert torch.cuda.max_memory_allocated() - base < 2 ** 24
+    state["w"].mul_(2.0)
+    state["w"].div_(2.0)
+    got = fut.result()
+    want = Checkpointer(Registry(str(tmp_path / "b")), "w").save(
+        1, {"state": state}, block=True)
+    assert got.image_id == want.image_id
 
 
 # ---------------------------------------------------------------------------

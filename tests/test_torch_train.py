@@ -357,13 +357,22 @@ def _run_steps(arch, n, microbatches=1):
                                             "lr", "tokens", "xent"]
         assert float(tm["lr"]) == float(jm["lr"])
         assert float(tm["tokens"]) == float(jm["tokens"])
-        for k in ("loss", "xent", "grad_norm"):
+        for k in ("loss", "xent", "grad_norm", "aux"):
             np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5)
     return jparams, jopt, tparams, topt
 
 
-def test_three_train_steps_match_reference():
-    jparams, jopt, tparams, topt = _run_steps("paper_consumer", 3)
+# float32 smoke configs, one torch thread (the fixture).  Measured here:
+# loss, xent, grad_norm and aux within 1.3e-6 relative at every step; the
+# worst params or moment entry at 0.10 (paper_consumer), 0.81
+# (recurrentgemma_2b: its tied embedding's near-zero gradients, 1.8e-5
+# off at -0.022) and 0.13 (granite_moe_1b_a400m) of STEP_TOL's bound.
+# granite's float32 expert picks are the reference's, as in
+# tests/test_torch_moe.py's float32 cases: compared as they are, jitted.
+@pytest.mark.parametrize("arch", [
+    "paper_consumer", "recurrentgemma_2b", "granite_moe_1b_a400m"])
+def test_three_train_steps_match_reference(arch):
+    jparams, jopt, tparams, topt = _run_steps(arch, 3)
     _assert_tree_close(tparams, jparams, **STEP_TOL)
     _assert_tree_close(topt, jopt, **STEP_TOL)
     assert int(topt["count"]) == 3

@@ -158,9 +158,10 @@ def _final_params(root):
     return reg.pull_image(best)[0]["params"]
 
 
-def test_train_cli_resume_equals_straight_run(tmp_path, capsys):
-    base = ["--smoke", "--arch", "paper_consumer", "--device", "cpu",
-            "--log-every", "1"]
+@pytest.mark.parametrize("arch", [
+    "paper_consumer", "recurrentgemma_2b", "granite_moe_1b_a400m"])
+def test_train_cli_resume_equals_straight_run(arch, tmp_path, capsys):
+    base = ["--smoke", "--arch", arch, "--device", "cpu", "--log-every", "1"]
     straight, split = tmp_path / "straight", tmp_path / "split"
     assert ttrain.main(base + ["--steps", "6", "--registry",
                                str(straight)]) == 0
