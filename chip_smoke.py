@@ -695,11 +695,16 @@ FLASH_CASES = [  # (label, B, Sq, Sk, H, Hkv, D, dtype, causal, window)
     ("wh-cross-decode", 8, 1, 1500, 20, 20, 64, torch.bfloat16, False, 0),
     ("wh-self", 8, 32, 32, 20, 20, 64, torch.bfloat16, True, 0),
     ("qvl-prefill", 8, 288, 288, 64, 8, 128, torch.bfloat16, True, 0),
+    # train-whisper's 8 x 128 decoder: causal self-attention, and the
+    # cross-attention over the 1500 frames (its encoder calls are
+    # wh-encoder's shape)
+    ("wh-train-self", 8, 128, 128, 20, 20, 64, torch.bfloat16, True, 0),
+    ("wh-train-cross", 8, 128, 1500, 20, 20, 64, torch.bfloat16, False, 0),
 ]
 FLASH_TIMED = ("smollm-train", "paper-train", "rg-prefill", "rg-long-prefill",
                "cq-prefill", "glm-prefill", "g3-prefill", "g3-long-prefill",
                "gm-prefill", "wh-encoder", "wh-cross", "wh-cross-decode",
-               "wh-self", "qvl-prefill")
+               "wh-self", "qvl-prefill", "wh-train-self", "wh-train-cross")
 
 
 def flash_work(q, k, causal: bool, window: int):
@@ -1731,10 +1736,11 @@ RG_SEEDS = (0, 1, 2)
 RG_LIMITS = {"bfloat16": dict(prefill=2e-2, decode=2e-2),
              "float32": dict(prefill=2e-4, decode=2e-4)}
 
-# float32 gradient gates of the two families that train on the card
-# (train_family_paths), in rg_model_phase and moe_model_phase from their
-# draws: one forward and backward of lm_loss on a [2, 32] batch of
-# SyntheticTokenDataset(seed) and one AdamW step of launch.train's
+# float32 gradient gates of the three families that train on the card
+# (train_family_paths), in rg_model_phase, moe_model_phase and
+# frontend_model_phase from their draws: one forward and backward of
+# lm_loss on a [2, 32] batch of SyntheticTokenDataset(seed) (whisper's
+# with [2, 1500, 1280] stub frames) and one AdamW step of launch.train's
 # settings (lr 3e-4 at step 0, weight decay 0.01, clip 1.0), card against
 # CPU.  Readings: the loss and the grad norm (relative), the worst leaf's
 # relative L2 gradient error, and the params after the step as the
@@ -1743,18 +1749,23 @@ RG_LIMITS = {"bfloat16": dict(prefill=2e-2, decode=2e-2),
 # gradient whose sign flips moves one entry by up to 2 lr: the maximum
 # over a billion entries says nothing, the L2 error weighs how many
 # flip).  The control lets cuBLAS round its float32 inputs to TF32.
-# PERF.md (the two families' training finding), on an H100 over each
+# PERF.md (the training findings of PRs 24-25), on an H100 over each
 # arch's seeds, worst sound / least control: recurrentgemma_2b loss
 # 7.7e-7 / 1.1e-5, grad norm 6.5e-6 /
 # 1.5e-5 (TF32's errors mostly cancel in the norm: its limit has 1.5x
 # room on either side), grads 4.3e-5 / 1.8e-3, params 5.1e-4 / 2.4e-2;
 # granite_moe_1b_a400m loss 0 / 3.3e-6, grad norm 6.8e-8 / 1.6e-5, grads
-# 3.8e-6 / 2.1e-3, params 5.9e-5 / 2.1e-2.
+# 3.8e-6 / 2.1e-3, params 5.9e-5 / 2.1e-2.  whisper_large_v3 (2 + 2
+# layers, 1500 frames; in frontend_model_phase, PERF.md's whisper training
+# finding) loss 8.3e-8 / 3.5e-6, grad norm 1.0e-7 / 7.0e-6, grads 2.4e-6 /
+# 9.5e-4, params 4.2e-5 / 1.4e-2: each limit near the geometric mean.
 GRAD_LIMITS = {
     "recurrentgemma_2b": dict(loss=3e-6, grad_norm=1e-5, grads=3e-4,
                               params=3e-3),
     "granite_moe_1b_a400m": dict(loss=1e-6, grad_norm=1e-6, grads=1e-4,
                                  params=1e-3),
+    "whisper_large_v3": dict(loss=5e-7, grad_norm=1e-6, grads=5e-5,
+                             params=1e-3),
 }
 # two of RG_SEEDS, for the script's time: the CPU's gradient and AdamW
 # step of the 13-layer model (1.7 B params) take 40-47 s a seed on the
@@ -1831,10 +1842,13 @@ class FollowPicks:
 
 def grad_step(cfg, params, seed: int, device: str):
     """One float32 forward and backward of ``lm_loss`` on a [2, 32] batch
-    of ``SyntheticTokenDataset(seed)``, then one AdamW step with
-    ``launch.train``'s settings at step 0, in place on ``params``.
-    -> (loss, gradients in leaf order, grad norm)."""
+    of ``SyntheticTokenDataset(seed)`` (with [2, F, d_model] stub audio
+    frames from the seed for an ``audio_frames`` config), then one AdamW
+    step with ``launch.train``'s settings at step 0, in place on
+    ``params``.  -> (loss, gradients in leaf order, grad norm)."""
     import dataclasses
+
+    import numpy as np
 
     from repro_torch.convert import to_tensor
     from repro_torch.data import DataConfig, SyntheticTokenDataset
@@ -1847,6 +1861,9 @@ def grad_step(cfg, params, seed: int, device: str):
     batch = SyntheticTokenDataset(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=32, global_batch=2,
         seed=seed)).batch(0)
+    if cfg.frontend == "audio_frames":
+        batch["frames"] = np.random.default_rng(seed).normal(
+            0, 0.02, (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     batch = {k: to_tensor(a, device) for k, a in batch.items()}
     flat, treedef = flatten(params)
     with torch.enable_grad():
@@ -1864,15 +1881,18 @@ def grad_step(cfg, params, seed: int, device: str):
 
 
 def grad_gate(arch, cfg, params, on_card, seed: int, launches: dict,
-              follow=None):
+              follow=None, nonzero=()):
     """The float32 gradient gate of ``arch`` (``GRAD_LIMITS``) for one
     seed: ``grad_step`` on the CPU from ``params``, on the card from a
     copy of ``on_card`` (sound) and from ``on_card`` itself with TF32
     products (the control), each card run launching ``launches`` (flash
     on the float32 route); ``follow`` (``FollowPicks``) makes the card
-    take the CPU's expert picks.  Both trees are updated in place (this
-    is their last use).  -> (sound readings, control readings)."""
+    take the CPU's expert picks; the sound run's gradients of the leaves
+    at ``nonzero`` (paths) must not be all zero.  Both trees are updated
+    in place (this is their last use).  -> (sound readings, control
+    readings)."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common
     from repro_torch.tree import leaves, tree_map
 
     t0 = time.perf_counter()
@@ -1883,6 +1903,9 @@ def grad_gate(arch, cfg, params, on_card, seed: int, launches: dict,
     # the CPU step's change, against the card's untouched copy of the init
     step_sq = sum(float((h.to("cuda") - c).double().square().sum())
                   for h, c in zip(h_params, leaves(on_card)))
+    named = dict(common.leaf_paths(on_card))
+    watched = {path: next(i for i, t in enumerate(leaves(on_card))
+                          if t is named[path]) for path in nonzero}
     out = []
     for control in (False, True):
         card = on_card if control else tree_map(torch.clone, on_card)
@@ -1904,6 +1927,9 @@ def grad_gate(arch, cfg, params, on_card, seed: int, launches: dict,
               and all(bool(torch.isfinite(g).all()) for g in grads),
               f"{arch} gradient gate: loss, grad norm or a gradient on the "
               "card not finite")
+        for path, j in watched.items():
+            check(control or bool(grads[j].any()), f"{arch} gradient gate: "
+                  f"the card's gradient of {path} is all zero")
         rel = []
         for g, h in zip(grads, h_grads):
             h = h.to("cuda")
@@ -1920,10 +1946,12 @@ def grad_gate(arch, cfg, params, on_card, seed: int, launches: dict,
                  f"{follow.differ} of {follow.total} (largest gap in the "
                  f"CPU's probabilities {follow.gap:.2e}, relative)"
                  if follow else "")
+        nz = (" (non-zero gradients: " + ", ".join(watched) + ")"
+              if watched and not control else "")
         print(f"[model] {arch} {cfg.num_layers} layers float32 gradient "
               f"gate, {label}, seed {seed}: " + " ".join(
                   f"{k}={v:.3e}" for k, v in out[-1].items())
-              + f" (loss {loss:.6f}, grad norm {norm:.6f}){picks}"
+              + f" (loss {loss:.6f}, grad norm {norm:.6f}){picks}{nz}"
               + (f" (CPU run {t_host:.1f} s)" if not control else ""))
         del card, grads
     return out
@@ -2092,15 +2120,20 @@ def train_paths(paths) -> None:
 TRAIN_FAMILY_STEPS = 3
 
 
-def train_family_path(paths, label: str, arch: str, per_step: dict) -> None:
-    """``launch.train --arch <arch>`` at full width and depth with the
-    CLI's defaults (batch 8, seq 128, bf16 compute, float32 params, AdamW)
-    for ``TRAIN_FAMILY_STEPS`` steps: rc 0, a finite final loss, exactly
-    ``per_step`` launches a step and no other kernel but the fingerprint
-    kernel, which the pushes launch (the step-0 snapshot's fingerprints on
-    the card, then the final blocking push's), every flash launch on the
-    wgmma route.  Prints init seconds, each step's wall, the peak card
-    memory, the snapshot's seconds and each push's bytes and GB/s."""
+def train_family_path(paths, label: str, arch: str, per_step: dict,
+                      run=None) -> None:
+    """``arch`` at full width and depth trained for ``TRAIN_FAMILY_STEPS``
+    steps by ``run(root)`` -> (rc, its printed lines), a registry at
+    ``root``: by default ``launch.train --arch <arch>`` with the CLI's
+    defaults (batch 8, seq 128, bf16 compute, float32 params, AdamW).
+    Checks rc 0, a finite loss at every step, exactly ``per_step``
+    launches a step and no other kernel but the fingerprint kernel, once
+    per leaf of params, m, v and the count at each of the two saves (the
+    step-0 snapshot's fingerprints on the card, then the final blocking
+    push's), every flash launch on the wgmma route, both pushes of 12 n +
+    4 bytes and the peak card memory below the card's.  Prints init
+    seconds, each step's wall, the peak card memory, the snapshot's
+    seconds and each push's bytes, GB/s and host-side parts."""
     import re
 
     from repro_torch import configs
@@ -2108,17 +2141,24 @@ def train_family_path(paths, label: str, arch: str, per_step: dict) -> None:
     from repro_torch.checkpoint import registry as registry_mod
     from repro_torch.kernels import build
     from repro_torch.launch import train
+    from repro_torch.train import step as steplib
+    from repro_torch.tree import leaves
 
     cfg = configs.get_config(arch)
-    image_bytes = 12 * cfg.param_count()  # params, m and v in float32
+    # the image from the leaves' shapes (meta tensors: nothing allocated);
+    # param_count() overcounts whisper_large_v3 by 197,457,920
+    shapes = leaves(steplib.param_shapes_and_axes(cfg)[0])
+    n_leaves, n_params = len(shapes), sum(t.numel() for t in shapes)
+    image_bytes = 12 * n_params + 4  # params, m, v in float32; the count
     # both images in the memory store
     need = 2 * image_bytes + 2 * 2 ** 30
     with open("/proc/meminfo") as f:
         free = 1024 * int(next(line for line in f if line.startswith(
             "MemAvailable:")).split()[1])
-    print(f"[path] {label}: {cfg.param_count()} params, image {image_bytes} "
-          f"bytes, pushed twice (the step-0 image, then the final one) into "
-          f"host memory; {free} bytes of host memory available")
+    print(f"[path] {label}: {n_params} params in {n_leaves} leaves, image "
+          f"{image_bytes} bytes, pushed twice (the step-0 image, then the "
+          f"final one) into host memory; {free} bytes of host memory "
+          "available")
     check(free >= need, f"{label}: {free} bytes of host memory available, "
           f"need {need} for two checkpoint images")
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -2136,17 +2176,17 @@ def train_family_path(paths, label: str, arch: str, per_step: dict) -> None:
              "put": 0.0}
 
     def timing(fn, part):
-        def run(*args, **kwargs):
+        def timed(*args, **kwargs):
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kwargs)
             finally:
                 parts[part] += time.perf_counter() - t0
-        return run
+        return timed
 
     class MemoryChunkStore(registry_mod.ChunkStore):
         """The chunks in host memory: the machine's disk takes 45 GiB of
-        writes a call, and these paths push 96.4 GB (two images each)."""
+        writes a call, and these paths push 133.6 GB (two images each)."""
 
         def __init__(self, root):
             self.root, self._lock, self._blobs = root, threading.Lock(), {}
@@ -2189,16 +2229,20 @@ def train_family_path(paths, label: str, arch: str, per_step: dict) -> None:
         saves.append((step, block, time.perf_counter() - t0))
         return out
 
+    if run is None:
+        def run(root):
+            return _captured(train.main, [
+                "--arch", arch, "--steps", str(TRAIN_FAMILY_STEPS),
+                "--ckpt-every", "100", "--log-every", "1", "--registry",
+                root])
+
     registry_mod.Registry.push_image = timed_push
     ckpt_mod.Checkpointer.save = timed_save
     torch.cuda.reset_peak_memory_stats()
     try:
-        argv = ["--arch", arch, "--steps", str(TRAIN_FAMILY_STEPS),
-                "--ckpt-every", "100", "--log-every", "1", "--registry",
-                root]
         with timed_init(inits):
             launches, (rc, text), wall = run_path(
-                label, lambda: _captured(train.main, argv),
+                label, lambda: run(root),
                 tuple(per_step) + ("fingerprint_lanes",), "wgmma")
     finally:
         registry_mod.Registry.push_image = plain_push
@@ -2207,49 +2251,106 @@ def train_family_path(paths, label: str, arch: str, per_step: dict) -> None:
             setattr(obj, name, fn)
         shutil.rmtree(root, ignore_errors=True)
     peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
     paths[label] = launches
-    check(rc == 0, f"{label}: launch.train exited {rc}")
+    check(rc == 0, f"{label}: the trainer exited {rc}")
     loss = float(text.split("[train] done; final loss")[1].split()[0])
-    check(math.isfinite(loss), f"{label}: final loss {loss}")
-    want = {k: TRAIN_FAMILY_STEPS * per_step.get(k, 0) for k in launches}
-    want["fingerprint_lanes"] = launches["fingerprint_lanes"]
-    check(launches == want and launches["fingerprint_lanes"] > 0,
-          f"{label}: launches {launches}, want {want} with at least one "
-          "fingerprint_lanes launch")
-    steps = [int(ms) for ms in re.findall(
-        r"\[train\] step +\d+ loss \S+ lr \S+ gnorm \S+ (\d+)ms", text)]
+    steps = re.findall(
+        r"\[train\] step +\d+ loss (\S+) lr \S+ gnorm \S+ (\d+)ms", text)
     check(len(steps) == TRAIN_FAMILY_STEPS, f"{label}: {len(steps)} step "
           "lines")
+    losses = [float(x) for x, _ in steps]
+    check(all(map(math.isfinite, losses + [loss])),
+          f"{label}: losses {losses}, final {loss}")
+    want = {k: TRAIN_FAMILY_STEPS * per_step.get(k, 0) for k in launches}
+    want["fingerprint_lanes"] = 2 * (3 * n_leaves + 1)
+    check(launches == want, f"{label}: launches {launches}, want {want}")
     check(len(inits) == 1 and len(pushes) == 2,
           f"{label}: {len(inits)} init_lm calls and {len(pushes)} pushes, "
           "want 1 and 2")
     (init_s, n), = inits
-    print(f"[path] {label}: rc={rc} final_loss={loss:.4f} per step "
-          f"{per_step}; init {init_s:.3f} s ({n / init_s / 1e6:.0f} M "
-          f"params/s); step walls {steps} ms; peak card memory {peak} "
-          f"bytes; path wall {wall:.3f} s")
+    check(n == n_params, f"{label}: init_lm made {n} params, the leaves' "
+          f"shapes hold {n_params}")
+    check(peak < total, f"{label}: peak card memory {peak} bytes, the card "
+          f"holds {total}")
+    print(f"[path] {label}: rc={rc} losses {losses} final_loss={loss:.4f} "
+          f"per step {per_step}; init {init_s:.3f} s ({n / init_s / 1e6:.0f}"
+          f" M params/s); step walls {[int(ms) for _, ms in steps]} ms; "
+          f"peak card memory {peak} bytes of {total}; path wall "
+          f"{wall:.3f} s")
     for step, block, dt in saves:
         what = ("blocking: waits for the pending push, then pushes"
                 if block else "snapshot: fingerprints on the card, bytes "
                 "to host")
         print(f"[path] {label}: save at step {step} ({what}) {dt:.3f} s")
     for dt, nbytes in pushes:
-        # params, m and v in float32 and AdamW's int32 count
-        check(nbytes == 12 * n + 4, f"{label}: a push of {nbytes} bytes, "
-              f"want {12 * n + 4}")
+        check(nbytes == image_bytes, f"{label}: a push of {nbytes} bytes, "
+              f"want {image_bytes}")
         print(f"[path] {label} checkpoint push: {nbytes} bytes in {dt:.3f} "
               f"s ({nbytes / dt / 1e9:.3f} GB/s)")
     print(f"[path] {label}: both pushes' host side, s: " + " ".join(
         f"{k}={v:.3f}" for k, v in parts.items()))
 
 
+def whisper_train(root) -> int:
+    """train-whisper's trainer: ``launch.train``'s loop and printed lines
+    (``src/repro_torch/launch/train.py``) with its settings (remat none,
+    lr 3e-3 with 10 warmup steps, AdamW with weight decay 0.01, batch 8 x
+    128, a ``Checkpointer`` every 100 steps into ``root``, the last save
+    blocking) for whisper_large_v3 at full width and depth, each batch
+    given [8, 1500, 1280] stub audio frames drawn from (0, step): the
+    CLI's data pipeline makes tokens and labels only, so neither
+    package's ``launch.train`` can train whisper.  -> 0."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import Checkpointer, Registry
+    from repro_torch.convert import to_tensor
+    from repro_torch.data import DataConfig, SyntheticTokenDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as steplib
+
+    arch, B, steps = "whisper_large_v3", 8, TRAIN_FAMILY_STEPS
+    cfg = configs.get_config(arch)
+    tcfg = steplib.TrainStepConfig(
+        remat="none", lr_peak=3e-3, warmup_steps=10, total_steps=steps,
+        opt=adamw.AdamWConfig(weight_decay=0.01))
+    ds = SyntheticTokenDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=128, global_batch=B))
+    ckpt = Checkpointer(Registry(root), f"train-{arch}", interval_steps=100)
+    params = T.init_lm(cfg, seed=0, device="cuda")
+    opt_state = adamw.adamw_init(params, tcfg.opt)
+    step_fn = steplib.build_train_step(cfg, tcfg)
+    for step in range(steps):
+        batch = ds.batch(step)
+        batch["frames"] = np.random.default_rng([0, step]).normal(
+            0, 0.02, (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        batch = {k: to_tensor(a, "cuda") for k, a in batch.items()}
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(
+            params, opt_state, batch, torch.tensor(step, dtype=torch.int32))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"[train] step {step:5d} loss {float(metrics['loss']):.4f} "
+              f"lr {float(metrics['lr']):.2e} gnorm "
+              f"{float(metrics['grad_norm']):.3f} {dt * 1e3:.0f}ms")
+        ckpt.maybe_save(step, {"params": params, "opt": opt_state})
+    ckpt.save(steps - 1, {"params": params, "opt": opt_state}, block=True)
+    print("[train] done; final loss", float(metrics["loss"]))
+    return 0
+
+
 def train_family_paths(paths) -> None:
     """``train-rg`` (recurrentgemma_2b: 18 ``rglru`` and 8
     ``flash_attention`` launches a step) and ``train-granite``
     (granite_moe_1b_a400m: 24 ``flash_attention`` launches a step)
-    through ``train_family_path``; the first trainer is freed and the
-    card's cache emptied before the second (43 and 21 GB of state and
-    gradients must not sit on the card together)."""
+    through ``launch.train``, and ``train-whisper`` (whisper_large_v3: 96
+    ``flash_attention`` launches a step, 32 encoder, 32 decoder self and
+    32 cross) through ``whisper_train``, each by ``train_family_path``;
+    each trainer is freed and the card's cache emptied before the next
+    (43, 21 and 25 GB of state and gradients must not sit on the card
+    together)."""
     import gc
 
     from repro_torch import configs
@@ -2257,13 +2358,17 @@ def train_family_paths(paths) -> None:
 
     rg = configs.get_config("recurrentgemma_2b")
     n_rec = rg.num_groups * sum(m == BlockKind.RGLRU for m, _ in rg.pattern)
-    for label, arch, per_step in (
+    wh = configs.get_config("whisper_large_v3")
+    for label, arch, per_step, run in (
             ("train-rg", "recurrentgemma_2b",
-             dict(rglru=n_rec, flash_attention=rg.num_layers - n_rec)),
+             dict(rglru=n_rec, flash_attention=rg.num_layers - n_rec), None),
             ("train-granite", "granite_moe_1b_a400m",
              dict(flash_attention=configs.get_config(
-                 "granite_moe_1b_a400m").num_layers))):
-        train_family_path(paths, label, arch, per_step)
+                 "granite_moe_1b_a400m").num_layers), None),
+            ("train-whisper", "whisper_large_v3",
+             dict(flash_attention=wh.num_encoder_layers + 2 * wh.num_layers),
+             lambda root: _captured(whisper_train, root))):
+        train_family_path(paths, label, arch, per_step, run)
         gc.collect()
         torch.cuda.empty_cache()
         print(f"[path] {label}: {torch.cuda.memory_allocated()} bytes "
@@ -3457,6 +3562,11 @@ WHISPER_LIMITS = {"bfloat16": dict(prefill=5e-2, decode=5e-2),
                   "float32": dict(prefill=2e-4, decode=2e-4)}
 QVL_LIMITS = {"bfloat16": dict(prefill=5e-2, decode=1e-2),
               "float32": dict(prefill=2e-4, decode=2e-4)}
+# leaves whose gradient on the card must not be all zero in whisper's
+# gradient gate: the encoder's, the cross-attention's and the learned
+# decoder positions (tests/test_torch_whisper.py asserts them on the CPU)
+WHISPER_NONZERO = ("encoder/groups/b0/attn/wq", "groups/b0/cross_attn/wk",
+                   "dec_pos_embed")
 # apply_mrope, float32 max abs: an ulp of a frequency (CUDA's powf against
 # the host's) moves an angle of up to 288 rad by up to 2e-5 and an output
 # of |x| ~ 4 by up to 1e-4; a permuted section moves it by O(1)
@@ -3584,8 +3694,9 @@ def frontend_model_phase() -> None:
     whisper's logits (``whisper_run``; control ``causal_encoder``) and
     qwen2-vl's (``qvl_run``; control ``flat_ids``), each limit holding for
     every seed and failing for the control at every seed, with the flash
-    and decode launches of each card run checked; then ``apply_mrope``
-    card against CPU (``MROPE_LIMIT``)."""
+    and decode launches of each card run checked; whisper's float32
+    gradient gate (``grad_gate``, ``GRAD_LIMITS``) on each seed's draw;
+    then ``apply_mrope`` card against CPU (``MROPE_LIMIT``)."""
     runs = (("whisper_large_v3", whisper_config, whisper_run,
              WHISPER_LIMITS, causal_encoder,
              # a prefill: 2 encoder + 2 self + 2 cross; a decode step: 2
@@ -3597,6 +3708,7 @@ def frontend_model_phase() -> None:
         cfg = make_cfg()
         sound = {dtype: [] for dtype in limits}
         ctl = {dtype: [] for dtype in limits}
+        grad = {"float32": []}, {"float32": []}
         for seed in FRONTEND_SEEDS:
             params, on_card = host_and_card(cfg, seed, arch)
             for dtype in limits:
@@ -3627,8 +3739,18 @@ def frontend_model_phase() -> None:
                               out[dtype][-1].items())
                           + (f" (CPU run {t_host:.1f} s)" if not control
                              else ""))
+            if arch in GRAD_LIMITS:
+                for out, r in zip(grad, grad_gate(
+                        arch, cfg, params, on_card, seed,
+                        dict(flash_attention=cfg.num_encoder_layers
+                             + 2 * cfg.num_layers),
+                        nonzero=WHISPER_NONZERO)):
+                    out["float32"].append(r)
             del params, on_card
         check_limits(arch, limits, sound, ctl)
+        if arch in GRAD_LIMITS:
+            check_limits(f"{arch} gradient gate",
+                         {"float32": GRAD_LIMITS[arch]}, *grad)
     mrope_check()
 
 

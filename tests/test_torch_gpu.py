@@ -508,6 +508,10 @@ FLASH_CASES = [  # (B, Sq, Sk, H, Hkv, D, causal, window)
     (8, 1, 1500, 20, 20, 64, False, 0),
     (8, 32, 32, 20, 20, 64, True, 0),
     (8, 288, 288, 64, 8, 128, True, 0),
+    # train-whisper's 8 x 128 decoder: causal self-attention and the
+    # cross-attention over the 1500 frames
+    (8, 128, 128, 20, 20, 64, True, 0),
+    (8, 128, 1500, 20, 20, 64, False, 0),
 ]
 
 
@@ -607,6 +611,34 @@ def test_flash_autograd_gradients_equal_plain(cuda, window):
         grads.append([t.grad for t in leaves_])
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_cross_shape_card_equals_cpu(cuda, dtype):
+    """``FlashAttention`` at a cross-attention shape (non-causal, Sq 40 over
+    Sk 1500: a ragged last kv tile of 28 keys): the kernel forward and the
+    plain backward on the card against the plain version's autograd on the
+    CPU, the output and the gradients of q, k and v."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (t.cpu() for t in _flash_inputs(cuda, 2, 40, 1500, 4, 4, 64,
+                                              dtype, seed=11))
+    w = torch.randn(q.shape, generator=torch.Generator().manual_seed(12))
+    outs = []
+    for dev in ("cpu", cuda):
+        leaves_ = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        before = fa.LAUNCHES
+        out = ops.attention(*leaves_, causal=False)
+        (out.float() * w.to(dev)).sum().backward()
+        outs.append((fa.LAUNCHES - before, out.detach().cpu(),
+                     [t.grad.cpu() for t in leaves_]))
+    (host_n, host_o, host_g), (card_n, card_o, card_g) = outs
+    assert (host_n, card_n) == (0, 1)
+    tol = TOL32 if dtype == torch.float32 else TOL_BF16
+    torch.testing.assert_close(card_o.float(), host_o.float(), **tol)
+    for a, b in zip(card_g, host_g):
+        assert a.dtype == b.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), **tol)
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
@@ -1218,6 +1250,52 @@ def test_train_cli_granite_smoke_on_card(cuda, tmp_path, capsys):
     assert fa.LAUNCHES - f0 == 3 * 2
     assert fp.LAUNCHES > p0
     _final_loss(capsys.readouterr().out)
+
+
+def test_whisper_smoke_loss_and_grads_on_card_match_cpu(cuda):
+    """whisper_large_v3's smoke config (2 encoder + 2 decoder layers,
+    float32) with stub audio frames: ``lm_loss`` and its gradients, the
+    train step's, on the card against the CPU, each flash call (2 encoder,
+    2 self, 2 cross) one launch on the float32 route, and the encoder's,
+    cross-attention's and ``dec_pos_embed``'s gradients not zero.
+    Tolerances: tests/test_torch_train.py's float32 LOSS_TOL and
+    GRAD_TOL (another sum order on each side)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticTokenDataset
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import flatten, unflatten
+
+    cfg = configs.get_smoke("whisper_large_v3")
+    params = T.init_lm(cfg, seed=0, device="cpu")
+    batch = SyntheticTokenDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=16, global_batch=2)).batch(0)
+    batch["frames"] = np.random.default_rng([0, 0]).normal(
+        0, 0.02, (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    flat, treedef = flatten(params)
+    runs = {}
+    for dev in ("cpu", cuda):
+        inputs = [t.detach().to(dev).requires_grad_() for t in flat]
+        f0, w0 = fa.LAUNCHES, fa.WGMMA_LAUNCHES
+        loss, _ = T.lm_loss(unflatten(treedef, inputs),
+                            {k: torch.from_numpy(a).to(dev)
+                             for k, a in batch.items()}, cfg)
+        grads = torch.autograd.grad(loss, inputs)
+        runs[str(dev)] = (float(loss.detach()), [g.cpu() for g in grads],
+                          (fa.LAUNCHES - f0, fa.WGMMA_LAUNCHES - w0))
+    (h_loss, h_grads, h_n), (c_loss, c_grads, c_n) = runs.values()
+    assert h_n == (0, 0) and c_n == (6, 0)
+    assert c_loss == pytest.approx(h_loss, rel=1e-5)
+    for a, b in zip(c_grads, h_grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+    index = {id(t): i for i, t in enumerate(flat)}
+    named = dict(common.leaf_paths(params))
+    for path in ("encoder/groups/b0/attn/wq", "groups/b0/cross_attn/wk",
+                 "dec_pos_embed"):
+        assert bool(c_grads[index[id(named[path])]].any()), path
 
 
 def test_checkpointer_snapshot_leaves_the_card(cuda, tmp_path):

@@ -349,6 +349,12 @@ def _run_steps(arch, n, microbatches=1):
                               global_batch=4))
     for s in range(n):
         b = ds.batch(s)
+        if jcfg.frontend == "audio_frames":
+            # the data pipeline makes tokens and labels only: stub audio
+            # frames from the step, as chip_smoke.py's train-whisper does
+            b["frames"] = np.random.default_rng([0, s]).normal(
+                0, 0.02, (4, jcfg.encoder_seq, jcfg.d_model)).astype(
+                    np.float32)
         jparams, jopt, jm = jfn(jparams, jopt, jax.tree.map(jnp.asarray, b),
                                 jnp.asarray(s, jnp.int32))
         tparams, topt, tm = tfn(tparams, topt, _torch_batch(b),
@@ -369,8 +375,12 @@ def _run_steps(arch, n, microbatches=1):
 # off at -0.022) and 0.13 (granite_moe_1b_a400m) of STEP_TOL's bound.
 # granite's float32 expert picks are the reference's, as in
 # tests/test_torch_moe.py's float32 cases: compared as they are, jitted.
+# whisper_large_v3 (2 + 2 layers, 24 frames) adds the encoder, the
+# cross-attention and dec_pos_embed to every step: its worst entry at
+# 0.29 of the bound.
 @pytest.mark.parametrize("arch", [
-    "paper_consumer", "recurrentgemma_2b", "granite_moe_1b_a400m"])
+    "paper_consumer", "recurrentgemma_2b", "granite_moe_1b_a400m",
+    "whisper_large_v3"])
 def test_three_train_steps_match_reference(arch):
     jparams, jopt, tparams, topt = _run_steps(arch, 3)
     _assert_tree_close(tparams, jparams, **STEP_TOL)

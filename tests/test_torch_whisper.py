@@ -11,7 +11,8 @@ after ``b0``), ``lm_forward``, ``lm_loss`` and its gradients, a prefill
 (encoder, cross-attention, ``enc_out`` written into the cache), decode
 steps and an append chunk reading ``enc_out`` from the cache, the cache
 through the port's ``Registry`` with decoding bit-equal after the pull,
-and the serving CLI.
+the serving CLI, and the training CLI's failure, the same in both
+packages.
 """
 import dataclasses
 import functools
@@ -23,12 +24,14 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
+from repro.launch import train as jtrain
 from repro.models import common as jcommon
 from repro.models import transformer as JT
 from repro_torch import configs as tconfigs
 from repro_torch.checkpoint import Registry
 from repro_torch.convert import to_tensor, tree_from_jax
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import train as ttrain
 from repro_torch.models import common as tcommon
 from repro_torch.models import config as tconfig
 from repro_torch.models import transformer as TT
@@ -338,3 +341,17 @@ def test_serve_cli_smoke(capsys):
                  "[serve] decoded 4 steps x 8 requests: ",
                  "[serve] sample continuation (request 0): "):
         assert line in out
+
+
+def test_train_cli_fails_alike_without_frames(tmp_path):
+    """Neither package's ``launch.train`` trains whisper: its data
+    pipeline makes tokens and labels only, and the encoder reads
+    ``batch["frames"]``, so both CLIs raise ``KeyError: 'frames'`` at the
+    first step (the card path drives the train step itself, with frames:
+    ``chip_smoke.py``'s train-whisper)."""
+    argv = ["--arch", ARCH, "--smoke", "--steps", "1", "--ckpt-every", "100"]
+    with pytest.raises(KeyError, match="frames"):
+        jtrain.main(argv + ["--registry", str(tmp_path / "jax")])
+    with pytest.raises(KeyError, match="frames"):
+        ttrain.main(argv + ["--registry", str(tmp_path / "torch"),
+                            "--device", "cpu"])

@@ -4,7 +4,8 @@
   python tools/profile_torch_train.py [--arch smollm_360m] [--steps 5] [--out F]
 
 Runs ``launch/train``'s step (``--arch`` at full width, batch 8 x 128
-tokens, remat none, AdamW) on the CUDA card, two steps to warm up, then:
+tokens, remat none, AdamW; whisper_large_v3 with 1500 stub audio frames
+a row) on the CUDA card, two steps to warm up, then:
 
   * host clock over ``--steps`` steps, each ending in a synchronize, split
     into the forward + backward (``lm_loss`` and its gradients) and the
@@ -44,6 +45,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="", help="also write the JSON here")
     args = ap.parse_args(argv)
 
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -90,7 +92,12 @@ def main(argv=None) -> int:
         fn.backward = staticmethod(timed)
 
     def step(i, phases=None):
-        batch = {k: to_tensor(a, "cuda") for k, a in ds.batch(i).items()}
+        batch = ds.batch(i)
+        if cfg.frontend == "audio_frames":
+            # stub audio frames, as chip_smoke.py's train-whisper draws them
+            batch["frames"] = np.random.default_rng([0, i]).normal(
+                0, 0.02, (8, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        batch = {k: to_tensor(a, "cuda") for k, a in batch.items()}
         t0 = time.perf_counter()
         inputs = [p.detach().requires_grad_() for p in flat]
         loss, _ = T.lm_loss(unflatten(treedef, inputs), batch, cfg)
