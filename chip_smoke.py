@@ -112,7 +112,23 @@ Phases, each fatal on failure (no phase catches its own error):
      RoPE over chatglm3's whole head, gemma3 without QK-norm, experts
      taken from the lowest router probabilities, whisper's encoder run
      causal, qwen2-vl's prompt under t = h = w ids, M-RoPE's sections
-     permuted), and the control must fail it;
+     permuted), and the control must fail it; the CPU side of
+     recurrentgemma's gate runs in a thread of its own from the start
+     (``HostGates``), beside the build and the kernel phase;
+  4b. remat (``remat_phase``, lines ``[remat]``): ``remat="none"``,
+     ``"dots"`` (the reference's ``dots_with_no_batch_dims_saveable``: a
+     selective checkpoint that saves the products with no batch dims)
+     and ``"full"`` on the card: smollm_360m at full width and depth,
+     ``launch.train``'s settings, one warm-up step then 2 steps under
+     each, bit-equal across the three (losses, grad norms, params, AdamW
+     state), 32 flash launches a step under ``none`` and 64 under the
+     others (the recompute launches the kernel again), ``aten.mm``
+     counted in the backward (``dots`` reruns none of the forward's),
+     each policy's step walls, saved activations (falling from ``none``
+     to ``full``) and forward + backward peak printed; recurrentgemma_2b's
+     float32 gradient step (13 layers) under ``dots`` and ``full``,
+     bit-equal to its gate's sound card run, ``rglru`` and flash launched
+     twice as often;
   5. path: ``repro_torch.launch.migrate.main`` with its defaults (the
      paper consumer at full width, max_seq 2048), with ``--precopy``,
      with ``--precopy --compression int8`` and with ``--workload serving
@@ -189,8 +205,10 @@ prints no result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
+import gc
 import hashlib
 import io
 import json
@@ -206,6 +224,7 @@ import time
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import torch  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 torch.use_deterministic_algorithms(True)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -282,14 +301,15 @@ def graph_ms(fn, reps: int = 50, graphs: int = 5) -> float:
     return start.elapsed_time(end) / (graphs * reps)
 
 
-def device_entries(fn, calls: int = 20, retry: bool = True) -> list:
+def device_entries(fn, calls: int = 20, retries: int = 2) -> list:
     """Every device entry of ``calls`` eager ``fn()`` calls under
     ``torch.profiler``: (name, count per call, device us per call).
 
     Every call makes the same entries, so an entry counted a fractional
-    number of times a call is the profiler losing events (seen now and
-    then on the H100): then the calls are profiled once more, and that
-    profile stands."""
+    number of times a call, or no device entry at all, is the profiler
+    losing events (seen now and then on the H100, as often as twice in
+    one run): then the calls are profiled again, up to ``retries`` more
+    times, and the last profile stands."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -305,10 +325,10 @@ def device_entries(fn, calls: int = 20, retry: bool = True) -> list:
             us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
             rows.append((e.key, e.count / calls, us / calls))
-    if retry and any(c != int(c) for _, c, _ in rows):
+    if retries and (not rows or any(c != int(c) for _, c, _ in rows)):
         print(f"[kernels] the profiler lost events ({rows}): profiling "
               "again")
-        return device_entries(fn, calls, retry=False)
+        return device_entries(fn, calls, retries - 1)
     return rows
 
 
@@ -1840,19 +1860,21 @@ class FollowPicks:
               "of the CPU run not made on the card")
 
 
-def grad_step(cfg, params, seed: int, device: str):
-    """One float32 forward and backward of ``lm_loss`` on a [2, 32] batch
-    of ``SyntheticTokenDataset(seed)`` (with [2, F, d_model] stub audio
-    frames from the seed for an ``audio_frames`` config), then one AdamW
-    step with ``launch.train``'s settings at step 0, in place on
-    ``params``.  -> (loss, gradients in leaf order, grad norm)."""
+def grad_step(cfg, params, seed: int, device: str, remat: str = "none",
+              mem=None):
+    """One float32 forward and backward of ``lm_loss`` (under ``remat``) on
+    a [2, 32] batch of ``SyntheticTokenDataset(seed)`` (with [2, F,
+    d_model] stub audio frames from the seed for an ``audio_frames``
+    config), then one AdamW step with ``launch.train``'s settings at step
+    0, in place on ``params``; ``mem`` (a dict, on the card) receives
+    ``forward_and_backward``'s readings.  -> (loss, gradients in leaf
+    order, grad norm)."""
     import dataclasses
 
     import numpy as np
 
     from repro_torch.convert import to_tensor
     from repro_torch.data import DataConfig, SyntheticTokenDataset
-    from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
     from repro_torch.optim.schedule import cosine_schedule
     from repro_torch.tree import flatten, unflatten
@@ -1865,41 +1887,124 @@ def grad_step(cfg, params, seed: int, device: str):
         batch["frames"] = np.random.default_rng(seed).normal(
             0, 0.02, (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     batch = {k: to_tensor(a, device) for k, a in batch.items()}
-    flat, treedef = flatten(params)
-    with torch.enable_grad():
-        inputs = [p.detach().requires_grad_() for p in flat]
-        loss, _ = T.lm_loss(unflatten(treedef, inputs), batch, cfg)
-        grads = torch.autograd.grad(loss, inputs)
-    del inputs
+    loss, grads = forward_and_backward(cfg, params, batch, remat, mem)
     opt_cfg = adamw.AdamWConfig(weight_decay=0.01)
     lr = cosine_schedule(torch.tensor(0, dtype=torch.int32, device=device),
                          peak=3e-3, warmup_steps=10, total_steps=3)
+    treedef = flatten(params)[1]
     _, _, met = adamw.adamw_update(params, unflatten(treedef, list(grads)),
                                    adamw.adamw_init(params, opt_cfg),
                                    opt_cfg, lr=lr)
     return float(loss.detach()), grads, float(met["grad_norm"])
 
 
+def forward_and_backward(cfg, params, batch, remat: str, mem=None):
+    """``lm_loss`` under ``remat`` and its gradients for every leaf of
+    ``params`` -> (loss, gradients in leaf order).  ``mem`` (a dict, on
+    the card) receives, after a garbage collection, what the forward
+    leaves allocated for the backward (``saved``: the activations, bytes
+    above what was allocated before) and the forward and backward's peak
+    allocation above it (``peak``: the gradients included)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import flatten, unflatten
+
+    flat, treedef = flatten(params)
+    if mem is not None:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    with torch.enable_grad():
+        inputs = [p.detach().requires_grad_() for p in flat]
+        loss, _ = T.lm_loss(unflatten(treedef, inputs), batch, cfg,
+                            remat=remat)
+        if mem is not None:
+            mem["saved"] = torch.cuda.memory_allocated() - before
+        grads = torch.autograd.grad(loss, inputs)
+    if mem is not None:
+        torch.cuda.synchronize()
+        mem["peak"] = torch.cuda.max_memory_allocated() - before
+    return loss, grads
+
+
+def host_grad_step(cfg, seed: int):
+    """``grad_step`` on the CPU from a fresh ``init_lm(seed)`` draw ->
+    (loss, gradients, grad norm, the params after the step in leaf order,
+    seconds)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    params = T.init_lm(cfg, seed=seed, device="cpu")
+    loss, grads, norm = grad_step(cfg, params, seed, "cpu")
+    return loss, grads, norm, leaves(params), time.perf_counter() - t0
+
+
+class HostGates:
+    """The CPU side of recurrentgemma's gradient gate (``host_grad_step``
+    for each of ``RG_GRAD_SEEDS``, in order) in a thread of its own,
+    started before the build: it needs only the seed, the config and the
+    draw, and runs beside the build and the kernel phase until
+    ``rg_model_phase`` asks for it (torch's ops let go of the GIL).
+    Started after the kernel phase instead, it shared the host's cores
+    with the model phases' CPU runs and both took 2.5x as long."""
+
+    def __init__(self):
+        self.results, self.error = {}, None
+        self.ready = {seed: threading.Event() for seed in RG_GRAD_SEEDS}
+        threading.Thread(target=self._run, daemon=True).start()
+
+    def _run(self):
+        try:
+            for seed in RG_GRAD_SEEDS:
+                self.results[seed] = host_grad_step(rg_config(), seed)
+                print(f"[model] recurrentgemma_2b gradient gate's CPU side, "
+                      f"seed {seed}: {self.results[seed][-1]:.1f} s in its "
+                      "thread", flush=True)
+                self.ready[seed].set()
+        except BaseException as e:  # noqa: BLE001  (raised by result)
+            self.error = e
+            for ready in self.ready.values():
+                ready.set()
+
+    def result(self, seed: int):
+        """-> ``host_grad_step``'s result for ``seed`` (handed over once),
+        and the seconds spent waiting for it."""
+        t0 = time.perf_counter()
+        self.ready[seed].wait()
+        if self.error is not None:
+            raise self.error
+        return self.results.pop(seed), time.perf_counter() - t0
+
+
+HOST_GATES = None  # set by main()
+
+
 def grad_gate(arch, cfg, params, on_card, seed: int, launches: dict,
-              follow=None, nonzero=()):
+              follow=None, nonzero=(), host=None, keep=None):
     """The float32 gradient gate of ``arch`` (``GRAD_LIMITS``) for one
-    seed: ``grad_step`` on the CPU from ``params``, on the card from a
-    copy of ``on_card`` (sound) and from ``on_card`` itself with TF32
-    products (the control), each card run launching ``launches`` (flash
-    on the float32 route); ``follow`` (``FollowPicks``) makes the card
-    take the CPU's expert picks; the sound run's gradients of the leaves
-    at ``nonzero`` (paths) must not be all zero.  Both trees are updated
-    in place (this is their last use).  -> (sound readings, control
-    readings)."""
+    seed: ``grad_step`` on the CPU from ``params`` (or ``host``, that
+    step's ``host_grad_step`` result from the same draw), on the card
+    from a copy of ``on_card`` (sound) and from ``on_card`` itself with
+    TF32 products (the control), each card run launching ``launches``
+    (flash on the float32 route); ``follow`` (``FollowPicks``) makes the
+    card take the CPU's expert picks; the sound run's gradients of the
+    leaves at ``nonzero`` (paths) must not be all zero; ``keep`` (a dict)
+    receives the sound card run's loss, gradients, grad norm and params
+    after the step.  Both trees are updated in place (this is their last
+    use).  -> (sound readings, control readings)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import common
     from repro_torch.tree import leaves, tree_map
 
-    t0 = time.perf_counter()
-    with follow.host() if follow else contextlib.nullcontext():
-        h_loss, h_grads, h_norm = grad_step(cfg, params, seed, "cpu")
-    t_host = time.perf_counter() - t0
-    h_params = leaves(params)
+    if host is None:
+        t0 = time.perf_counter()
+        with follow.host() if follow else contextlib.nullcontext():
+            h_loss, h_grads, h_norm = grad_step(cfg, params, seed, "cpu")
+        t_host = time.perf_counter() - t0
+        h_params = leaves(params)
+    else:
+        h_loss, h_grads, h_norm, h_params, t_host = host
     # the CPU step's change, against the card's untouched copy of the init
     step_sq = sum(float((h.to("cuda") - c).double().square().sum())
                   for h, c in zip(h_params, leaves(on_card)))
@@ -1912,9 +2017,14 @@ def grad_gate(arch, cfg, params, on_card, seed: int, launches: dict,
         reset_counts()
         torch.backends.cuda.matmul.allow_tf32 = control
         try:
+            mem = {} if keep is not None and not control else None
+            t0 = time.perf_counter()
             with (follow.card(strict=not control) if follow
                   else contextlib.nullcontext()):
-                loss, grads, norm = grad_step(cfg, card, seed, "cuda")
+                loss, grads, norm = grad_step(cfg, card, seed, "cuda",
+                                              mem=mem)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
         n = read_counts()
@@ -1953,6 +2063,9 @@ def grad_gate(arch, cfg, params, on_card, seed: int, launches: dict,
                   f"{k}={v:.3e}" for k, v in out[-1].items())
               + f" (loss {loss:.6f}, grad norm {norm:.6f}){picks}{nz}"
               + (f" (CPU run {t_host:.1f} s)" if not control else ""))
+        if keep is not None and not control:
+            keep.update(loss=loss, grads=grads, norm=norm, params=card,
+                        launches=n, wall=wall, mem=mem)
         del card, grads
     return out
 
@@ -1994,11 +2107,12 @@ def read_counts() -> dict:
     return {name: counts[name] for name in KERNELS}
 
 
-def run_path(label, fn, needs, flash_route=None):
+def run_path(label, fn, needs, flash_route=None, tag="path"):
     """Run ``fn()`` with every counter set to 0 just before and read just
     after; each kernel in ``needs`` must have launched, and with
     ``flash_route`` ("wgmma" or "float32") every flash launch must have
-    taken that route.  -> (launches, fn's result, wall seconds)."""
+    taken that route; the printed line starts with ``[tag]``.  ->
+    (launches, fn's result, wall seconds)."""
     from repro_torch.kernels import flash_attention as fa
 
     reset_counts()
@@ -2008,7 +2122,7 @@ def run_path(label, fn, needs, flash_route=None):
     wall = time.perf_counter() - t0
     launches = read_counts()
     wgmma = fa.WGMMA_LAUNCHES
-    print(f"[path] {label}: wall={wall:.3f} s launches={launches} "
+    print(f"[{tag}] {label}: wall={wall:.3f} s launches={launches} "
           f"flash on the wgmma route={wgmma}")
     for name in needs:
         check(launches[name] > 0, f"{label}: kernel {name} never launched")
@@ -2118,6 +2232,9 @@ def train_paths(paths) -> None:
 
 
 TRAIN_FAMILY_STEPS = 3
+# the trainers' memory chunk store: copy threads, 4 MiB chunks in flight
+STORE_THREADS = 4
+STORE_IN_FLIGHT = 64
 
 
 def train_family_path(paths, label: str, arch: str, per_step: dict,
@@ -2135,6 +2252,9 @@ def train_family_path(paths, label: str, arch: str, per_step: dict,
     seconds, each step's wall, the peak card memory, the snapshot's
     seconds and each push's bytes, GB/s and host-side parts."""
     import re
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
 
     from repro_torch import configs
     from repro_torch.checkpoint import checkpointer as ckpt_mod
@@ -2171,7 +2291,8 @@ def train_family_path(paths, label: str, arch: str, per_step: dict,
     # (``leaf_view``: a copy from the card, none from the snapshot's host
     # copy), its fingerprints where the push takes them (the blocking
     # push), its chunks' sha256 keys (``hash``, on the host's cores) and
-    # each chunk's store (``put``)
+    # the chunks' store (``put``: waiting for room among the copies in
+    # flight, and at the push's end for the last of them)
     parts = {"leaf_view": 0.0, "fingerprints": 0.0, "hash": 0.0,
              "put": 0.0}
 
@@ -2186,13 +2307,24 @@ def train_family_path(paths, label: str, arch: str, per_step: dict,
 
     class MemoryChunkStore(registry_mod.ChunkStore):
         """The chunks in host memory: the machine's disk takes 45 GiB of
-        writes a call, and these paths push 133.6 GB (two images each)."""
+        writes a call, and these paths push 133.6 GB (two images each).
+        A chunk's copy into fresh memory (its page faults are most of its
+        cost) runs on ``STORE_THREADS`` threads (numpy's copy lets go of
+        the GIL), at most ``STORE_IN_FLIGHT`` chunks at a time; a push
+        ends when its copies have (``wait``)."""
 
         def __init__(self, root):
             self.root, self._lock, self._blobs = root, threading.Lock(), {}
+            self._room = threading.BoundedSemaphore(STORE_IN_FLIGHT)
 
         def has(self, key):
             return key in self._blobs
+
+        def _copy(self, data):
+            try:
+                return np.frombuffer(data, np.uint8).copy()
+            finally:
+                self._room.release()
 
         @functools.partial(timing, part="put")
         def put(self, data, key=None):
@@ -2200,11 +2332,17 @@ def train_family_path(paths, label: str, arch: str, per_step: dict,
             with self._lock:
                 new = key not in self._blobs
                 if new:
-                    self._blobs[key] = bytes(data)
+                    self._room.acquire()
+                    self._blobs[key] = copies.submit(self._copy, data)
             return key, new
 
+        @functools.partial(timing, part="put")
+        def wait(self):
+            for blob in list(self._blobs.values()):
+                blob.result()
+
         def get(self, key):
-            return self._blobs[key]
+            return self._blobs[key].result().tobytes()
 
     patched = ((registry_mod._codecs, "leaf_view",
                 timing(registry_mod._codecs.leaf_view, "leaf_view")),
@@ -2220,6 +2358,7 @@ def train_family_path(paths, label: str, arch: str, per_step: dict,
     def timed_push(self, trees, *args, **kwargs):
         t0 = time.perf_counter()
         rep = plain_push(self, trees, *args, **kwargs)
+        self.store.wait()
         pushes.append((time.perf_counter() - t0, rep.total_bytes))
         return rep
 
@@ -2238,6 +2377,8 @@ def train_family_path(paths, label: str, arch: str, per_step: dict,
 
     registry_mod.Registry.push_image = timed_push
     ckpt_mod.Checkpointer.save = timed_save
+    copies = ThreadPoolExecutor(STORE_THREADS,
+                                thread_name_prefix="chunk-store")
     torch.cuda.reset_peak_memory_stats()
     try:
         with timed_init(inits):
@@ -2249,6 +2390,7 @@ def train_family_path(paths, label: str, arch: str, per_step: dict,
         ckpt_mod.Checkpointer.save = plain_save
         for (obj, name, _), fn in zip(patched, plain_fns):
             setattr(obj, name, fn)
+        copies.shutdown()
         shutil.rmtree(root, ignore_errors=True)
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
@@ -2618,14 +2760,18 @@ def carry_dropped():
         ops.rglru_scan, ref.rglru_decode_step = scan, step
 
 
-def rg_model_phase() -> None:
+def rg_model_phase() -> dict:
     """Card against CPU, over ``RG_SEEDS`` and in each dtype of
     ``RG_LIMITS``: recurrentgemma_2b's logits at full width cut to
     ``RG_LAYERS`` layers.  The weights are drawn once a seed on the CPU
     (``init_lm`` draws there for every device) and copied to the card.
     Each limit must hold for every seed and fail for the control
-    (``carry_dropped``) at every seed."""
+    (``carry_dropped``) at every seed.  The gradient gate's CPU side comes
+    from ``HOST_GATES``.  -> what ``remat_phase`` takes of the first
+    gate's seed: the config, the seed, the params on the card as drawn,
+    and the gate's sound card run."""
     from repro_torch.models import BlockKind
+    from repro_torch.tree import tree_map
 
     cfg = rg_config()
     n_rec = sum(m == BlockKind.RGLRU for m, _ in cfg.pattern)
@@ -2659,10 +2805,20 @@ def rg_model_phase() -> None:
                           f"{k}={v:.3e}" for k, v in out[dtype][-1].items())
                       + (f" (CPU run {t_host:.1f} s)" if not control else ""))
         if seed in RG_GRAD_SEEDS:
+            host, waited = HOST_GATES.result(seed)
+            print(f"[model] recurrentgemma_2b gradient gate, seed {seed}: "
+                  f"waited {waited:.1f} s for its CPU side")
+            keep = None
+            if seed == RG_GRAD_SEEDS[0]:
+                keep = {}
+                handover = dict(cfg=cfg, seed=seed, sound=keep,
+                                start=tree_map(torch.clone, on_card))
             for out, r in zip(grad, grad_gate(
                     "recurrentgemma_2b", cfg, params, on_card, seed,
-                    dict(rglru=n_rec, flash_attention=n_attn))):
+                    dict(rglru=n_rec, flash_attention=n_attn), host=host,
+                    keep=keep)):
                 out["float32"].append(r)
+            del host
         del params, on_card
     check_limits("recurrentgemma_2b gradient gate",
                  {"float32": GRAD_LIMITS["recurrentgemma_2b"]}, *grad)
@@ -2679,6 +2835,221 @@ def rg_model_phase() -> None:
             check(least > limit, f"recurrentgemma_2b {dtype}: the control "
                   f"passes the {name} limit ({least:.3e} <= {limit:.1e}); "
                   "the check cannot see it")
+    return handover
+
+
+# the remat phase: smollm_360m at full width and depth, launch.train's
+# settings but remat (lr 3e-3, 10 warmup steps, AdamW wd 0.01, 8 x 128):
+# one warm-up step, then REMAT_STEPS steps under each policy from it
+REMAT_STEPS = 2
+
+
+class MMCount(TorchDispatchMode):
+    """Counts ``aten.mm``: in the forward inside the layer groups
+    (``groups``, while ``T._run_groups`` runs; ``counting`` marks it), in
+    the rest of the forward (``forward``) and in the backward
+    (``backward``: where the autograd engine runs a node, a recompute
+    included)."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = collections.Counter()
+        self.in_groups = False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.mm.default:
+            if torch._C._current_autograd_node() is not None:
+                self.counts["backward"] += 1
+            else:
+                self.counts["groups" if self.in_groups else "forward"] += 1
+        return func(*args, **(kwargs or {}))
+
+    @contextlib.contextmanager
+    def counting(self):
+        from repro_torch.models import transformer as T
+
+        plain = T._run_groups
+
+        def groups(*args, **kwargs):
+            self.in_groups = True
+            try:
+                return plain(*args, **kwargs)
+            finally:
+                self.in_groups = False
+
+        T._run_groups = groups
+        try:
+            with self:
+                yield
+        finally:
+            T._run_groups = plain
+
+
+def remat_phase(paths, rg) -> None:
+    """``remat="none"``, ``"dots"`` and ``"full"`` on the card.
+
+    smollm_360m at full width and depth through ``build_train_step``: one
+    warm-up step under ``none``, then ``REMAT_STEPS`` steps under each
+    policy from copies of its params and AdamW state.  The losses, grad
+    norms, every param and every AdamW leaf after the steps must be the
+    same bits under the three; the flash kernel launches once a layer a
+    step under ``none`` and twice under ``dots`` and ``full`` (the
+    recompute launches it again), all on the wgmma route.  Then one more
+    forward and backward of ``lm_loss`` under each, from the warm-up
+    state, counting ``aten.mm`` (``MMCount``): ``dots`` runs as many in
+    the backward as ``none`` (every forward one is saved), ``full`` one
+    more for each forward one in the layer groups but each group's last
+    (``w_down``: only the group's output reads it, and the recompute
+    stops before it).  Printed: each policy's step walls, what the
+    garbage collector frees after the steps, and that forward and
+    backward's allocations (``forward_and_backward``): the activations
+    the forward saves, which must fall from ``none`` to ``dots`` to
+    ``full``, and the peak (the gradients included, which set it at
+    this batch), which must be lower under ``full`` than under
+    ``none``.
+
+    recurrentgemma_2b at full width cut to ``RG_LAYERS`` layers, from the
+    params its gradient gate drew on the card (``rg``, from
+    ``rg_model_phase``): one float32 ``grad_step`` under ``dots`` and one
+    under ``full``, each bit-equal to the gate's sound card run under
+    ``none`` (loss, grad norm, every gradient, every param after the
+    AdamW step), launching ``rglru`` and flash twice as often as it, the
+    flash launches on the float32 route."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticTokenDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as steplib
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = configs.get_config("smollm_360m")
+    B, S, L = 8, 128, cfg.num_layers
+    ds = SyntheticTokenDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=S, global_batch=B))
+    batches = [{k: torch.from_numpy(a).cuda() for k, a in ds.batch(i).items()}
+               for i in range(1 + REMAT_STEPS)]
+
+    def tcfg(remat):
+        return steplib.TrainStepConfig(
+            remat=remat, lr_peak=3e-3, warmup_steps=10,
+            total_steps=1 + REMAT_STEPS,
+            opt=adamw.AdamWConfig(weight_decay=0.01))
+
+    params = T.init_lm(cfg, seed=0, device="cuda")
+    opt = adamw.adamw_init(params, tcfg("none").opt)
+    steplib.build_train_step(cfg, tcfg("none"))(
+        params, opt, batches[0], torch.tensor(0, dtype=torch.int32))
+    torch.cuda.synchronize()
+    runs = {}
+    for remat in T.REMAT:
+        p, o = tree_map(torch.clone, params), tree_map(torch.clone, opt)
+        step = steplib.build_train_step(cfg, tcfg(remat))
+
+        def train():
+            out = []
+            for i in range(1, 1 + REMAT_STEPS):
+                t0 = time.perf_counter()
+                _, _, m = step(p, o, batches[i],
+                               torch.tensor(i, dtype=torch.int32))
+                torch.cuda.synchronize()
+                out.append((m["loss"], m["grad_norm"],
+                            time.perf_counter() - t0))
+            return out
+
+        launches, steps, wall = run_path(f"remat-{remat}", train,
+                                         ("flash_attention",), "wgmma",
+                                         tag="remat")
+        paths[f"remat-{remat}"] = launches
+        held = torch.cuda.memory_allocated()
+        gc.collect()
+        cyclic = held - torch.cuda.memory_allocated()
+        # one forward and backward from the warm-up state, its products
+        # counted and its allocations read
+        mm, mem = MMCount(), {}
+        with mm.counting():
+            forward_and_backward(cfg, params, batches[1], remat, mem)
+        runs[remat] = dict(steps=steps, params=p, opt=o, mm=mm.counts,
+                           mem=mem, launches=launches)
+        print(f"[remat] smollm_360m {L} layers, remat={remat}: "
+              f"{REMAT_STEPS} steps of {B} x {S}, losses "
+              f"{[float(x) for x, _, _ in steps]}, grad norms "
+              f"{[float(g) for _, g, _ in steps]}, step walls "
+              f"{[round(t * 1e3, 1) for _, _, t in steps]} ms; forward + "
+              f"backward: activations saved {mem['saved']} bytes, peak "
+              f"{mem['peak']} bytes (gradients "
+              f"{4 * sum(t.numel() for t in leaves(params))}); left to the "
+              f"garbage collector after the steps {cyclic} bytes; flash "
+              f"launches {launches['flash_attention']} ({REMAT_STEPS} "
+              f"steps); aten.mm in one forward + backward: "
+              f"{dict(mm.counts)}")
+    none = runs["none"]
+    for remat in ("dots", "full"):
+        r = runs[remat]
+        check(all(torch.equal(a, b) for x, y in zip(r["steps"], none["steps"])
+                  for a, b in zip(x[:2], y[:2]))
+              and all(torch.equal(a, b) for a, b in
+                      zip(leaves((r["params"], r["opt"])),
+                          leaves((none["params"], none["opt"])))),
+              f"remat: smollm_360m's losses, grad norms, params or AdamW "
+              f"state under {remat} differ from remat=none's bits")
+    for remat, per_step in (("none", L), ("dots", 2 * L), ("full", 2 * L)):
+        n = runs[remat]["launches"]["flash_attention"]
+        check(n == REMAT_STEPS * per_step, f"remat: {n} flash launches "
+              f"under {remat}, want {per_step} a step")
+    groups = none["mm"]["groups"]
+    check(groups == 7 * L, f"remat: {groups} forward mm in the groups, want "
+          "7 a layer (q, k, v, o, up, gate, down)")
+    for remat, extra in (("dots", 0), ("full", groups - cfg.num_groups)):
+        got, want = runs[remat]["mm"]["backward"], none["mm"]["backward"]
+        check(got == want + extra and runs[remat]["mm"]["groups"] == groups,
+              f"remat: {got} mm in the backward under {remat}, want "
+              f"{want} + {extra}")
+    saved = [runs[r]["mem"]["saved"] for r in ("full", "dots", "none")]
+    check(saved[0] < saved[1] < saved[2], "remat: the activations the "
+          f"forward saves under full, dots and none ({saved} bytes) do not "
+          "fall in that order")
+    peaks = [runs[r]["mem"]["peak"] for r in ("full", "none")]
+    check(peaks[0] < peaks[1], f"remat: the forward and backward's peak "
+          f"under full ({peaks[0]} bytes) is not below none's ({peaks[1]})")
+    del runs, params, opt, batches
+    torch.cuda.empty_cache()
+
+    cfg, seed, sound = rg["cfg"], rg["seed"], rg["sound"]
+    once = {k: sound["launches"][k] for k in ("rglru", "flash_attention")}
+    print(f"[remat] recurrentgemma_2b {cfg.num_layers} layers float32, "
+          f"seed {seed}, remat=none (the gradient gate's sound card run): "
+          f"loss {sound['loss']!r}, grad norm {sound['norm']!r}, wall "
+          f"{sound['wall'] * 1e3:.1f} ms, forward + backward: activations "
+          f"saved {sound['mem']['saved']} bytes, peak "
+          f"{sound['mem']['peak']} bytes; launches {once}")
+    for remat in ("dots", "full"):
+        card = (rg.pop("start") if remat == "full"
+                else tree_map(torch.clone, rg["start"]))
+        mem = {}
+
+        def run():
+            return grad_step(cfg, card, seed, "cuda", remat=remat, mem=mem)
+
+        launches, (loss, grads, norm), wall = run_path(
+            f"remat-rg-{remat}", run, ("rglru", "flash_attention"), "float32",
+            tag="remat")
+        paths[f"remat-rg-{remat}"] = launches
+        print(f"[remat] recurrentgemma_2b {cfg.num_layers} layers float32, "
+              f"seed {seed}, remat={remat}: loss {loss!r}, grad norm "
+              f"{norm!r}, wall {wall * 1e3:.1f} ms, forward + backward: "
+              f"activations saved {mem['saved']} bytes, peak {mem['peak']} "
+              f"bytes; launches {({k: launches[k] for k in once})}")
+        check(loss == sound["loss"] and norm == sound["norm"]
+              and all(torch.equal(a, b) for a, b in zip(grads, sound["grads"]))
+              and all(torch.equal(a, b) for a, b in
+                      zip(leaves(card), leaves(sound["params"]))),
+              f"remat: recurrentgemma_2b's float32 step under {remat} "
+              "differs from the gradient gate's sound card run's bits")
+        check(all(launches[k] == 2 * n for k, n in once.items()),
+              f"remat: recurrentgemma_2b launches {launches} under {remat}, "
+              f"want twice {once}")
+        del card, grads
+    torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -3960,14 +4331,20 @@ def main() -> int:
         return out
 
     card_phase()
+    global HOST_GATES
+    HOST_GATES = HostGates()
     timed(build_phase)
     rows = timed(kernel_phase)
-    for phase in (model_phase, train_model_phase, rg_model_phase,
-                  xl_model_phase, dense_model_phase, moe_model_phase,
+    paths = {}
+    timed(model_phase)
+    timed(train_model_phase)
+    rg = timed(rg_model_phase)
+    timed(remat_phase, paths, rg)
+    del rg
+    for phase in (xl_model_phase, dense_model_phase, moe_model_phase,
                   frontend_model_phase):
         timed(phase)
     fold = ("decode_attention", "fingerprint_lanes")
-    paths = {}
     for argv, label, needs in (
             ([], "default", fold),
             (["--precopy"], "precopy", fold),

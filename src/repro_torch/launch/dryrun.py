@@ -23,6 +23,18 @@ cell:
     These are datasheet values, not measurements, and every number of a
     row is the port's own count, not XLA's (``cost_source``).
 
+A ``2x16x16`` train cell runs on the same 512 ranks as a 32x16 mesh,
+``pod`` and ``data`` taken as one axis (``mesh_run_as``): a 3-D
+``DeviceMesh`` stalls DTensor's sharding propagation (over 90 s for one
+matmul in torch 2.13).  The rules name ``pod`` only beside ``data``, as
+``("pod", "data")``, so where every placed leaf's spec names the two
+together in that order or neither (``pod_data_apart``, checked on the
+3-D mesh after the divisibility drop), each leaf's local shard is the
+3-D mesh's; a collective over the merged axis is one over 32 ranks, where
+DTensor on the 3-D mesh would issue one over ``pod`` and one over
+``data``.  A cell whose specs name them apart is a FAIL row that says so.
+Every OK row says how its mesh ran.
+
 A cell that cannot run on meta tensors or does not finish within
 ``CELL_SECONDS`` is a FAIL row with its error.
 
@@ -49,9 +61,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch import configs
-from repro_torch.models.config import SHAPES, ModelConfig
+from repro_torch.models.config import SHAPES, ModelConfig, ShapeSpec
 from repro_torch.optim import adamw
+from repro_torch.sharding.rules import AbstractMesh, AxisRules
 from repro_torch.train import step as steplib
+from repro_torch.tree import flatten
 
 # H100 SXM5 80GB (700 W) datasheet values, not measurements
 PEAK_FLOPS = 989e12      # bf16 dense, per card
@@ -63,6 +77,11 @@ COST_SOURCE = ("repro_torch dry-run: rank 0's local-shard op counts on a "
                "cost_analysis; roofline constants from the H100 SXM5 "
                "80GB (700 W) datasheet, not measured")
 CELL_SECONDS = 900
+MULTI_POD = AbstractMesh(("pod", "data", "model"), (2, 16, 16))
+POD_DATA = ("pod", "data")
+RUN_AS = {"16x16": "16x16 (data, model)",
+          "2x16x16": "2x16x16 (pod, data, model)",
+          "32x16": "32x16 (pod*data, model)"}
 
 _COLLECTIVES = {
     "all_gather_into_tensor": "all-gather",
@@ -149,6 +168,52 @@ def _local_bytes(tree) -> int:
                for t in _tensors(tree))
 
 
+def leaf_specs(cfg: ModelConfig, shape: ShapeSpec, mesh,
+               rules: AxisRules, tcfg=None) -> Dict[str, Any]:
+    """{leaf name: (its shape, its spec on ``mesh``)} of every leaf a cell
+    places: the params and the AdamW state (train) or the params and the
+    cache, and the batch.  ``rules``' drops are not recorded."""
+    rules = AxisRules(rules.rules)
+    out = {}
+
+    def add(prefix, shapes, shardings):
+        flat, _ = flatten(shapes)
+        for i, (t, sh) in enumerate(zip(flat, flatten(shardings)[0])):
+            out[f"{prefix}/{i}"] = (tuple(t.shape), tuple(sh.spec))
+
+    add("batch", steplib.input_specs(cfg, shape),
+        steplib.batch_shardings(cfg, shape, mesh, rules))
+    if shape.kind == "train":
+        tcfg = tcfg or steplib.TrainStepConfig(opt=opt_config_for(cfg))
+        p, p_sh, o, o_sh = steplib.train_state_shardings(
+            cfg, mesh, tcfg.opt, rules, param_dtype=tcfg.param_dtype)
+        add("opt", o, o_sh)
+    else:
+        p, p_axes = steplib.param_shapes_and_axes(cfg)
+        p_sh = steplib._shardings_from(mesh, p_axes, p, rules)
+        add("cache", *steplib.cache_shardings(cfg, shape, mesh, rules))
+    add("params", p, p_sh)
+    return out
+
+
+def _entry_axes(entry):
+    return () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def pod_data_apart(specs: Dict[str, Any]) -> list:
+    """The leaves of ``leaf_specs`` whose spec names ``pod`` or ``data``
+    other than as ``("pod", "data")`` in one entry."""
+    bad = []
+    for name, (_, spec) in specs.items():
+        for entry in spec:
+            axes = _entry_axes(entry)
+            named = [a for a in axes if a in POD_DATA]
+            if named and tuple(named) != POD_DATA:
+                bad.append(name)
+    return bad
+
+
 def _run_cell_step(cfg, shape, mesh, rules, tcfg=None):
     """Place the cell's inputs and run its step -> argument bytes a rank
     (the step runs under the caller's cost mode)."""
@@ -216,10 +281,19 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                          f"{cfg.name} is full-attention (DESIGN.md §4)")
         return row
 
-    _fake_world(512 if multi_pod else 256)
-    mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
-    chips = mesh.size()
     rules = steplib.arch_rules(cfg)
+    as_one = multi_pod and shape.kind == "train"
+    if as_one:
+        apart = pod_data_apart(leaf_specs(cfg, shape, MULTI_POD, rules,
+                                          tcfg))
+        if apart:
+            raise ValueError(
+                f"{len(apart)} leaves name pod and data apart (first "
+                f"{apart[:3]}): the cell cannot run as 32x16")
+    _fake_world(512 if multi_pod else 256)
+    mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu",
+                                pod_data_as_one=as_one)
+    chips = mesh.size()
     rules.dropped.clear()
     cost = LocalCostMode()
     old = signal.signal(signal.SIGALRM, _alarm)
@@ -245,9 +319,13 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     coll_t = coll_pd / LINK_BW
     dominant = max((("compute", compute_t), ("memory", memory_t),
                     ("collective", coll_t)), key=lambda kv: kv[1])[0]
+    dropped = [(n, d, POD_DATA if as_one and tuple(ax) == ("data",)
+                and rules.get(n) == POD_DATA else ax)
+               for n, d, ax in rules.dropped]
     row.update({
         "status": "OK",
         "chips": chips,
+        "mesh_run_as": RUN_AS["32x16" if as_one else row["mesh"]],
         "cost_source": COST_SOURCE,
         "constants": {"peak_flops": PEAK_FLOPS, "hbm_bytes_per_s": HBM_BW,
                       "link_bytes_per_s": LINK_BW,
@@ -269,7 +347,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             "useful_flops_ratio": (model_flops / (flops_pd * chips)
                                    if flops_pd else 0.0),
         },
-        "dropped_shardings": [list(map(str, d)) for d in rules.dropped[:20]],
+        "dropped_shardings": [list(map(str, d)) for d in dropped[:20]],
         "seconds": round(time.time() - t_start, 1),  # simlint: disable=SIM002
     })
     return row

@@ -15,7 +15,15 @@ def _mesh(device_type: str, shape, names):
     return init_device_mesh(device_type, tuple(shape), mesh_dim_names=names)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device_type="cuda"):
+def make_production_mesh(*, multi_pod: bool = False, device_type="cuda",
+                         pod_data_as_one: bool = False):
+    """The 16x16 ``(data, model)`` mesh, or the 2x16x16 ``(pod, data,
+    model)`` one; with ``pod_data_as_one``, the 2x16x16 mesh's ranks as a
+    32x16 mesh whose first axis is ``pod`` and ``data`` taken as one
+    (named ``data``: rules that name ``("pod", "data")`` resolve to it,
+    as the 3-D mesh's pod-major split of the same 32)."""
+    if multi_pod and pod_data_as_one:
+        return _mesh(device_type, (32, 16), ("data", "model"))
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return _mesh(device_type, shape, axes)

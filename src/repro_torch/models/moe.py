@@ -28,7 +28,8 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.models import mlp as _mlp
 from repro_torch.models.common import merge_dims, param, split_dim
-from repro_torch.sharding.rules import batch_axes, on_local_shards
+from repro_torch.sharding.rules import (batch_axes, logical_to_spec,
+                                        on_local_shards)
 from repro_torch.sharding.rules import (
     with_sharding_constraint_logical as constrain)
 
@@ -90,15 +91,29 @@ def _router(params, xf, cfg):
 def _experts(params, expert_in, dt, lead: str, axes):
     """The three expert products over ``expert_in`` [..., E, C, D]
     (``lead``: the einsum letters of its axes before E; ``axes``: the
-    buffers' logical axes)."""
-    wg = params["w_gate"].to(dt)
-    wu = params["w_up"].to(dt)
-    wd = params["w_down"].to(dt)
+    buffers' logical axes).
+
+    On DTensors they run on every rank's local shards: the buffers as
+    ``axes`` place them, each expert stack split over E as they are and
+    whole over D and F.  DTensor's own einsum can view a gradient whose
+    local layout is not its global strides' (the 2x16x16 dry-run's
+    train cells, run as 32x16), and fails."""
+    wg, wu, wd = (params[k].to(dt) for k in ("w_gate", "w_up", "w_down"))
     expert_in = constrain(expert_in, axes)
+    products = functools.partial(_expert_products, lead=lead)
+    if not isinstance(expert_in, DTensor):
+        return products(expert_in, wg, wu, wd)
+    mesh = expert_in.device_mesh
+    spec = logical_to_spec(axes, mesh, dims=expert_in.shape)
+    w_spec = (spec[len(lead)], None, None)
+    return on_local_shards(products, mesh, (expert_in, wg, wu, wd),
+                           (spec, w_spec, w_spec, w_spec), spec)
+
+
+def _expert_products(expert_in, wg, wu, wd, *, lead: str):
     h = F.silu(torch.einsum(f"{lead}ecd,edf->{lead}ecf", expert_in, wg))
     h = h * torch.einsum(f"{lead}ecd,edf->{lead}ecf", expert_in, wu)
-    h = constrain(h, axes)
-    return constrain(torch.einsum(f"{lead}ecf,efd->{lead}ecd", h, wd), axes)
+    return torch.einsum(f"{lead}ecf,efd->{lead}ecd", h, wd)
 
 
 def _take(a, idx):
@@ -187,43 +202,85 @@ def _moe_forward_local(params, x, cfg):
     return constrain(out, ("batch", "seq", "act_embed")), aux
 
 
-def _moe_forward_global(params, x, cfg):
-    """Baseline: one global token pool (global sort)."""
-    B, S, D = x.shape
-    E, K = cfg.num_experts, cfg.num_experts_per_tok
-    T = B * S
-    C = expert_capacity(cfg, T)
-    dt, dev = x.dtype, x.device
-    xf = x.reshape(T, D)
-
-    # the reference inlines _router's computation here (a flat [T,E])
-    gate_w, gate_ids, aux = _router(params, xf, cfg)  # [T,K]
-
-    # ---- sort-based dispatch ----
+def _global_plan(gate_ids, *, E: int, K: int, C: int):
+    """The global route's dispatch and combine indices over one token pool,
+    from the expert picks [T,K] -> order: the stable sort of the T*K
+    entries by expert; t_s: the token of each sorted entry; keep: whether
+    it fit; slot: where it sits (E*C, the dump slot, where it did not);
+    inv_order: the inverse of the sort.  All [T*K]."""
+    T = gate_ids.shape[0]
     flat_e = gate_ids.reshape(-1)  # [T*K], entry t*K + k
     order = torch.sort(flat_e, stable=True).indices
     e_s = flat_e[order]
     t_s = order // K
     seg_start = torch.searchsorted(e_s, e_s, side="left")
-    pos = torch.arange(T * K, device=dev) - seg_start  # rank within expert
+    pos = torch.arange(T * K, device=gate_ids.device) - seg_start  # rank
     keep = pos < C
     slot = torch.where(keep, e_s * C + pos, E * C)  # E*C = dump slot
+    inv_order = torch.sort(order, stable=True).indices
+    return order, t_s, keep, slot, inv_order
 
-    gathered = xf[t_s] * keep[:, None].to(dt)  # [T*K, D]
-    buf = torch.zeros((E * C + 1, D), dtype=dt, device=dev)
+
+def _dispatch(xf, t_s, keep, slot, *, E: int, C: int):
+    """Each kept entry's token written to its slot -> expert_in [E,C,D]."""
+    gathered = xf[t_s] * keep[:, None].to(xf.dtype)  # [T*K, D]
+    buf = torch.zeros((E * C + 1, xf.shape[1]), dtype=xf.dtype,
+                      device=xf.device)
     buf.index_put_((slot,), gathered, accumulate=True)
-    expert_in = buf[: E * C].reshape(E, C, D)
+    return buf[: E * C].reshape(E, C, xf.shape[1])
+
+
+def _combine(flat_out, gate_w, order, keep, slot, inv_order, *, K: int):
+    """Each sorted entry's expert output, weighted, un-sorted to token-major
+    order, each token's K summed in a fixed order -> [T, D]."""
+    EC, D = flat_out.shape
+    w_s = gate_w.reshape(-1)[order]
+    vals = flat_out[torch.clamp(slot, max=EC - 1)]
+    vals = vals * (w_s * keep).to(flat_out.dtype)[:, None]
+    return vals[inv_order].reshape(-1, K, D).sum(1)
+
+
+def _moe_forward_global(params, x, cfg):
+    """Baseline: one global token pool (global sort).
+
+    On DTensors the token pool and the plan are replicated on every rank
+    (the reference's sharded global route lowers to full-token-buffer
+    collectives): DTensor has no rule for ``searchsorted`` or the
+    in-place ``index_put_``, so the plan, the dispatch and the combine
+    run on every rank's replicated local tensors; the expert products
+    stay sharded over ``act_experts``."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    T = B * S
+    C = expert_capacity(cfg, T)
+    dt = x.dtype
+    xf = x.reshape(T, D)
+
+    # the reference inlines _router's computation here (a flat [T,E])
+    gate_w, gate_ids, aux = _router(params, xf, cfg)  # [T,K]
+
+    plan = functools.partial(_global_plan, E=E, K=K, C=C)
+    dispatch = functools.partial(_dispatch, E=E, C=C)
+    combine = functools.partial(_combine, K=K)
+    mesh = x.device_mesh if isinstance(x, DTensor) else None
+    r1, r2 = (None,), (None, None)  # replicated
+    if mesh is not None:
+        order, t_s, keep, slot, inv_order = on_local_shards(
+            plan, mesh, (gate_ids,), (r2,), (r1,) * 5)
+        expert_in = on_local_shards(dispatch, mesh, (xf, t_s, keep, slot),
+                                    (r2, r1, r1, r1), (None,) * 3)
+    else:
+        order, t_s, keep, slot, inv_order = plan(gate_ids)
+        expert_in = dispatch(xf, t_s, keep, slot)
 
     expert_out = _experts(params, expert_in, dt, "",
                           ("act_experts", None, None))
 
     # ---- combine: un-sort to token-major order, sum each token's K ----
-    flat_out = expert_out.reshape(E * C, D)
-    w_s = gate_w.reshape(-1)[order]
-    vals = flat_out[torch.clamp(slot, max=E * C - 1)]
-    vals = vals * (w_s * keep).to(dt)[:, None]
-    inv_order = torch.sort(order, stable=True).indices
-    out = vals[inv_order].reshape(T, K, D).sum(1)
+    args = (expert_out.reshape(E * C, D), gate_w, order, keep, slot,
+            inv_order)
+    out = (combine(*args) if mesh is None else on_local_shards(
+        combine, mesh, args, (r2, r2) + (r1,) * 4, r2))
 
     if cfg.shared_expert:
         out = out + _mlp.mlp_forward(params["shared"], x, cfg).reshape(T, D)

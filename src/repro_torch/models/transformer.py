@@ -16,12 +16,23 @@ groups, indexing the same stacked tensors (so ``unroll`` changes
 nothing).  Params and caches keep the reference's tree keys, stacking,
 shapes and dtypes (they become checkpoint registry leaves).
 
-Remat: ``"none"`` keeps every activation; ``"full"`` and ``"dots"`` both
-recompute each layer group in the backward pass
-(``torch.utils.checkpoint``, non-reentrant).  Recomputation is
-deterministic, so the numbers do not change.  JAX's ``dots`` policy
-(keep the products without batch dimensions, recompute the rest) has no
-exact torch counterpart; here it is the same as ``full``.
+Remat: ``"none"`` keeps every activation; ``"dots"`` and ``"full"``
+checkpoint each layer group (``torch.utils.checkpoint``, non-reentrant,
+with a selective policy).  ``"dots"`` is the reference's
+``dots_with_no_batch_dims_saveable``: it saves the output of every
+product with no batch dims (``x @ W`` against a 2-D weight, which
+dispatches as ``aten.mm`` after a view) and recomputes everything else in
+the backward pass: batched products (``aten.bmm``: the expert and RG-LRU
+gate einsums, the plain attention's), norms, activations, casts, gathers,
+and every hand-written kernel's forward (a kernel launch is no dispatcher
+op, so the policy never sees it: the recompute launches it again into
+fresh outputs, as a ``pallas_call`` is no dot to the reference's policy).
+``"full"`` saves nothing (``nothing_saveable``).  The recompute stops
+once it has what the backward needs, so neither policy reruns a group's
+last product, which only the group's output reads; where that product
+has no batch dims, ``dots`` saves its output all the same (one
+activation a group the reference's DCE drops).  Recomputation is
+deterministic, so the numbers do not change.
 
 Prefill, decode and append update the cache tensors in place and return
 the same cache dict (see ``repro_torch.models.attention``).  A recurrent
@@ -40,8 +51,9 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, NamedTuple
 
 import torch
-import torch.utils.checkpoint
 from torch.distributed.tensor import DTensor, Replicate
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.models import attention, common, mlp, moe, rglru, xlstm
@@ -199,6 +211,26 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda"):
 # ---------------------------------------------------------------------------
 
 REMAT = ("none", "dots", "full")
+# the products with no batch dims: what ``dots`` saves
+NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: save the output of a product with no batch dims,
+    recompute any other op."""
+    return (CheckpointPolicy.MUST_SAVE if op in NO_BATCH_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def save_nothing(ctx, op, *args, **kwargs):
+    """``remat="full"``: recompute every op."""
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(remat: str):
+    """The selective checkpoint's contexts for ``remat``."""
+    return create_selective_checkpoint_contexts(
+        save_dots if remat == "dots" else save_nothing)
 
 
 def _apply_block(blk, x, positions, cfg, i: int, *, enc_out=None,
@@ -248,7 +280,8 @@ def _run_groups(groups, x, positions, cfg, *, enc_out=None, causal=True,
 
     The stacked tensors are unbound once, so their gradient is one stack
     of the per-group gradients.  ``remat`` other than ``"none"``
-    recomputes each group in the backward pass."""
+    checkpoints each group under its policy (``save_dots``,
+    ``save_nothing``)."""
     if remat not in REMAT:
         raise ValueError(f"remat {remat!r}; one of {REMAT}")
     npos = n_positions or len(cfg.pattern)
@@ -269,8 +302,8 @@ def _run_groups(groups, x, positions, cfg, *, enc_out=None, causal=True,
         if remat == "none":
             x, a = inner(x)
         else:
-            x, a = torch.utils.checkpoint.checkpoint(inner, x,
-                                                     use_reentrant=False)
+            x, a = checkpoint(inner, x, use_reentrant=False,
+                              context_fn=lambda: _remat_context(remat))
         aux = aux + a
     return x, aux
 

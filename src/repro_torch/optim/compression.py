@@ -75,23 +75,25 @@ def _dequant(q, scale, orig_shape, pad):
 def _flatten_up_to(treedef, tree):
     """The subtrees of ``tree`` at the leaf positions of ``treedef``."""
     out = []
-
-    def walk(node, sub):
-        if node is None:
-            return
-        if node == LEAF:
-            out.append(sub)
-            return
-        (kind, body), = node.items()
-        if kind == "dict":
-            for k, v in body.items():
-                walk(v, sub[k])
-        else:
-            for v, s in zip(body, sub):
-                walk(v, s)
-
-    walk(treedef, tree)
+    _walk_up_to(treedef, tree, out)
     return out
+
+
+# module-level, as ``tree._walk``: a nested recursion would hold ``out``
+# in a reference cycle until the garbage collector runs
+def _walk_up_to(node, sub, out):
+    if node is None:
+        return
+    if node == LEAF:
+        out.append(sub)
+        return
+    (kind, body), = node.items()
+    if kind == "dict":
+        for k, v in body.items():
+            _walk_up_to(v, sub[k], out)
+    else:
+        for v, s in zip(body, sub):
+            _walk_up_to(v, s, out)
 
 
 def compress_gradients(grads, ef_state):

@@ -20,40 +20,43 @@ LEAF = "*"
 def flatten(tree) -> Tuple[List[Any], Any]:
     """-> (leaves in sorted-key order, JSON-able treedef)."""
     leaves: List[Any] = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {"dict": {k: walk(node[k]) for k in sorted(node)}}
-        if isinstance(node, (list, tuple)):
-            kind = "list" if isinstance(node, list) else "tuple"
-            return {kind: [walk(x) for x in node]}
-        leaves.append(node)
-        return LEAF
 
-    return leaves, walk(tree)
+# module-level recursions: a nested function that calls itself sits in a
+# reference cycle with its closure, which would keep the leaves (a train
+# step's gradients) alive until the garbage collector runs
+def _walk(node, leaves: List[Any]):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {"dict": {k: _walk(node[k], leaves) for k in sorted(node)}}
+    if isinstance(node, (list, tuple)):
+        kind = "list" if isinstance(node, list) else "tuple"
+        return {kind: [_walk(x, leaves) for x in node]}
+    leaves.append(node)
+    return LEAF
 
 
 def unflatten(treedef, leaves):
     """Inverse of :func:`flatten`."""
     it = iter(leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        if node == LEAF:
-            return next(it)
-        (kind, body), = node.items()
-        if kind == "dict":
-            return {k: build(v) for k, v in body.items()}
-        items = [build(v) for v in body]
-        return items if kind == "list" else tuple(items)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the treedef holds")
     return out
+
+
+def _build(node, it):
+    if node is None:
+        return None
+    if node == LEAF:
+        return next(it)
+    (kind, body), = node.items()
+    if kind == "dict":
+        return {k: _build(v, it) for k, v in body.items()}
+    items = [_build(v, it) for v in body]
+    return items if kind == "list" else tuple(items)
 
 
 def leaves(tree) -> List[Any]:

@@ -100,6 +100,28 @@ def test_flatten_orders_leaves_as_jax():
         unflatten(treedef, leaves + [6])
 
 
+def test_flatten_and_unflatten_hold_no_leaf_after_they_return():
+    """No reference cycle keeps a leaf alive past the call (a train
+    step's gradients went through ``unflatten`` and lived until the
+    garbage collector ran)."""
+    import gc
+    import weakref
+
+    leaf = torch.zeros(4)
+    ref = weakref.ref(leaf)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        treedef = flatten({"a": [leaf, None], "b": (leaf,)})[1]
+        unflatten(treedef, [leaf, leaf])
+        tree_map(lambda t: t, {"a": leaf})
+        del leaf
+        assert ref() is None
+    finally:
+        if enabled:
+            gc.enable()
+
+
 @pytest.fixture
 def registries(tmp_path):
     return (JRegistry(str(tmp_path / "jax"), chunk_bytes=CHUNK),

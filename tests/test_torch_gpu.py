@@ -1406,3 +1406,44 @@ def test_init_lm_on_card_bit_equal_to_cpu(cuda):
     leaf = common.param((3 * common.BLOCK // 1000 + 7, 1000))
     assert torch.equal(common.materialize(leaf, 4, "w", device=cuda).cpu(),
                        common.materialize(leaf, 4, "w"))
+
+
+@pytest.mark.parametrize("arch,kernel", [("smollm_360m", "flash_attention"),
+                                         ("recurrentgemma_2b", "rglru"),
+                                         ("xlstm_350m", "mlstm")])
+def test_remat_policies_give_the_same_bits_on_card(cuda, arch, kernel):
+    """``lm_loss`` and its gradients of a smoke config on the card under
+    ``remat="dots"`` and ``"full"`` are ``"none"``'s bits, and the
+    recompute launches the hand-written kernel of each layer again: twice
+    ``none``'s launches (each group's kernel calls are inside the group,
+    never its last op)."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm as ml
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import flatten, unflatten
+
+    mod = {"flash_attention": fa, "rglru": rg, "mlstm": ml}[kernel]
+    cfg = configs.get_smoke(arch)
+    params = T.init_lm(cfg, seed=0, device=cuda)
+    g = torch.Generator().manual_seed(0)
+    tok = torch.randint(0, cfg.vocab_size, (2, 16), generator=g,
+                        dtype=torch.int32).to(cuda)
+    batch = {"tokens": tok, "labels": tok}
+    flat, treedef = flatten(params)
+    runs = {}
+    for remat in ("none", "dots", "full"):
+        inputs = [t.detach().requires_grad_() for t in flat]
+        n0 = mod.LAUNCHES
+        loss, _ = T.lm_loss(unflatten(treedef, inputs), batch, cfg,
+                            remat=remat)
+        grads = torch.autograd.grad(loss, inputs)
+        runs[remat] = (loss.detach(), grads, mod.LAUNCHES - n0)
+    loss0, grads0, n = runs["none"]
+    assert n > 0
+    for remat in ("dots", "full"):
+        loss, grads, m = runs[remat]
+        assert torch.equal(loss, loss0)
+        assert all(torch.equal(a, b) for a, b in zip(grads, grads0))
+        assert m == 2 * n

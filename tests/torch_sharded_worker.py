@@ -5,7 +5,8 @@ with ``src`` on ``PYTHONPATH``: it joins a gloo world through the file
 store ``STORE``, and for every case of ``CASES`` (a ``torch.save`` list)
 places the given params, AdamW state, cache and batches as DTensors on the
 case's mesh, runs the port's step functions on them (twice where the case
-asks), and rank 0 saves what came out (gathered to full tensors) and
+asks; a train case under its ``remat`` policy, ``"none"`` by default),
+and rank 0 saves what came out (gathered to full tensors) and
 whether the two runs gave the same bits under ``OUT``.  A world of one rank runs each case on a
 1 x 1 mesh and unsharded.  It imports torch and the port only.
 """
@@ -41,7 +42,8 @@ def _equal(a, b):
 def _train(case, cfg, mesh):
     tcfg = S.TrainStepConfig(
         opt=adamw.AdamWConfig(weight_decay=0.01, eps=case["adam_eps"]),
-        remat="none", lr_peak=1e-3, warmup_steps=2, total_steps=100)
+        remat=case.get("remat", "none"), lr_peak=1e-3, warmup_steps=2,
+        total_steps=100)
     params = copy.deepcopy(case["params"])
     opt = adamw.adamw_init(params, tcfg.opt)
     batch = dict(case["batch"])
