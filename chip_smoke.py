@@ -114,7 +114,11 @@ Phases, each fatal on failure (no phase catches its own error):
      causal, qwen2-vl's prompt under t = h = w ids, M-RoPE's sections
      permuted), and the control must fail it; the CPU side of
      recurrentgemma's gate runs in a thread of its own from the start
-     (``HostGates``), beside the build and the kernel phase;
+     (``HostRuns``), beside the build and the kernel phase, and the CPU
+     sides of the dense and frontend checks in another from the end of
+     the MoE phase, beside the migrate paths, the examples and the trainer
+     migrations, whose card sides then run (the card drawing the same
+     weights itself);
   4b. remat (``remat_phase``, lines ``[remat]``): ``remat="none"``,
      ``"dots"`` (the reference's ``dots_with_no_batch_dims_saveable``: a
      selective checkpoint that saves the products with no batch dims)
@@ -195,7 +199,15 @@ Phases, each fatal on failure (no phase catches its own error):
      ``TrainerWorker`` at full width
      migrated through ``ms2m_statefulset`` and through ``ms2m_precopy``
      with int8 deltas (``benchmarks/delta_precopy.py``'s trainer
-     workload), each verified bit for bit against the reference fold.
+     workload), each verified bit for bit against the reference fold;
+  6. examples (``examples_phase``, lines ``[examples]``): the port's
+     quickstart, serving-engine and StatefulSet-trainer examples run whole
+     on the card, and the live example's replay-speedup measurement and
+     its two ``ms2m_cutoff`` runs at 16 msg/s (paper-faithful, the cutoff
+     firing, and batched at the card's speedup), each verified, with the
+     virtual times and counts the JAX examples print; the live example's
+     four strategies at 10 msg/s and the rolling example are held on the
+     CPU by the tests (see the phase).
 
 Before the two JSON lines it prints the script's own run time.  The line
 before the last is the kernel table as JSON; the last line is
@@ -210,10 +222,12 @@ import contextlib
 import functools
 import gc
 import hashlib
+import importlib.util
 import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -301,6 +315,9 @@ def graph_ms(fn, reps: int = 50, graphs: int = 5) -> float:
     return start.elapsed_time(end) / (graphs * reps)
 
 
+PROFILE_MARGIN_S = 0.02
+
+
 def device_entries(fn, calls: int = 20, retries: int = 2) -> list:
     """Every device entry of ``calls`` eager ``fn()`` calls under
     ``torch.profiler``: (name, count per call, device us per call).
@@ -316,9 +333,17 @@ def device_entries(fn, calls: int = 20, retries: int = 2) -> list:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the profiler keeps the device events inside its window on the
+        # host's clock, onto which it maps the card's, so the calls keep
+        # clear of both edges of the window (without these margins one
+        # call of twenty went missing in twelve profiles in a row of one
+        # run, the host's CPUs busy with a thread's CPU work; with them
+        # events are still lost now and then, and the retries catch it)
+        time.sleep(PROFILE_MARGIN_S)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     rows = []
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -442,7 +467,7 @@ def decode_inputs(gen, B, S, H, Hkv, D, dtype, ring: bool, window: int = 0):
 
 DECODE_TIMED = ("main", "smollm-serve", "rg-serve", "rg-ring", "cq-serve",
                 "glm-serve", "g3-serve", "g3-ring", "gm-serve", "wh-serve",
-                "qvl-serve")
+                "qvl-serve", "qs-serve", "engine")
 
 
 def kernel_phase():
@@ -498,6 +523,12 @@ def kernel_phase():
          DECODE_TOL_BF16),
         ("qvl-serve", 8, 320, 64, 8, 128, torch.bfloat16, False, 0,
          DECODE_TOL_BF16),
+        # the examples: torch_quickstart.py's serve part (the smoke
+        # smollm_360m, float32, D 20: 3 heads over 1, a 64-slot cache) and
+        # torch_serving_engine_migration.py's engine (the smoke paper
+        # consumer, D 16: 4 heads over 2, 2 slots of 128)
+        ("qs-serve", 2, 64, 3, 1, 20, torch.float32, False, 0, DECODE_TOL),
+        ("engine", 2, 128, 4, 2, 16, torch.float32, False, 0, DECODE_TOL),
     ]
     main_err = None
     timed = {}
@@ -601,9 +632,58 @@ FP_CASES = [  # (label, C, R): each [C, R, 128] words
     ("xl-24", 1, 24),
     ("xl-12", 1, 12),
     ("xl-1", 1, 1),
+    # the other leaf shapes of the train-rg, train-granite and
+    # train-whisper pushes (params, AdamW moments and count, float32 words
+    # on the 4 MiB grid: push_shapes)
+    ("rg-625ch", 625, 8192),
+    ("rg-38ch", 38, 8192),
+    ("rg-13ch", 13, 8192),
+    ("rg-2ch", 2, 8192),
+    ("rg-160", 1, 160),
+    ("rg-40", 1, 40),
+    ("rg-20", 1, 20),
+    ("gm-384ch", 384, 8192),
+    ("gm-24ch", 24, 8192),
+    ("gm-192", 1, 192),
+    ("wh-200ch", 200, 8192),
+    ("wh-65ch", 65, 8192),
+    ("wh-10ch", 10, 8192),
+    ("wh-320", 1, 320),
+    ("wh-10", 1, 10),
 ]
 FP_TIMED = ("fold", "small-leaf", "leaf-210MB", "int8-kv", "xl-12ch",
-            "xl-6ch", "xl-3ch", "xl-6144", "xl-384", "xl-24", "xl-12", "xl-1")
+            "xl-6ch", "xl-3ch", "xl-6144", "xl-384", "xl-24", "xl-12", "xl-1",
+            "rg-625ch", "rg-38ch", "rg-13ch", "rg-2ch", "rg-160", "rg-40",
+            "rg-20", "gm-384ch", "gm-24ch", "gm-192", "wh-200ch", "wh-65ch",
+            "wh-10ch", "wh-320", "wh-10")
+# the trainer paths whose pushes FP_CASES times whole (push_shapes)
+FP_PUSHES = {"train-rg": "recurrentgemma_2b",
+             "train-granite": "granite_moe_1b_a400m",
+             "train-whisper": "whisper_large_v3"}
+
+
+def push_shapes(arch: str) -> dict:
+    """{(C, R): launches} of one push of ``arch``'s trainer image at full
+    width and depth: a params leaf is fingerprinted three times (params,
+    m and v, float32) and the step count once, each as
+    ``fingerprint.chunked_words`` lays it out on the registry's grid
+    (shapes from the config's specs on the meta device: nothing drawn)."""
+    import math
+
+    from repro_torch import configs
+    from repro_torch.checkpoint.registry import CHUNK_BYTES
+    from repro_torch.kernels import fingerprint as fp
+    from repro_torch.models import common
+    from repro_torch.models import transformer as T
+
+    def shape(n: int):
+        words = torch.empty(n, dtype=torch.float32, device="meta")
+        return tuple(fp.chunked_words(words, CHUNK_BYTES).shape[:2])
+
+    counts = collections.Counter({shape(1): 1})
+    for _, leaf in common.leaf_paths(T.lm_specs(configs.get_config(arch))):
+        counts[shape(math.prod(leaf.shape))] += 3
+    return dict(counts)
 
 
 def fingerprint_kernel(gen):
@@ -651,6 +731,23 @@ def fingerprint_kernel(gen):
               f"call ({entries[0][2]:.2f} us the kernel alone), "
               f"{plain_ms * 1e3:.2f} us plain, bound {b_ms * 1e3:.3f} us "
               f"({b_by})")
+    # one whole push of each trainer path: its launches at each shape
+    timed = {(C, R): label for label, C, R in FP_CASES if label in FP_TIMED}
+    for path, arch in FP_PUSHES.items():
+        shapes = push_shapes(arch)
+        missing = [s for s in shapes if s not in timed]
+        check(not missing, f"fingerprint: {path}'s push shapes {missing} "
+              "are not timed")
+        rows = [(by_shape[timed[s]], n) for s, n in shapes.items()]
+        total = {k: sum(r[k] * n for r, n in rows)
+                 for k in ("ms", "plain_ms", "bound_ms")}
+        by_shape[path] = dict(launches=sum(shapes.values()),
+                              shapes={timed[s]: n for s, n in shapes.items()},
+                              **total)
+        print(f"[kernels] fingerprint_lanes {path} push: "
+              f"{sum(shapes.values())} launches over {len(shapes)} shapes, "
+              f"{total['ms']:.3f} ms of calls, {total['plain_ms']:.3f} ms "
+              f"plain, bound {total['bound_ms']:.3f} ms")
     # a real float32 leaf through the registry's path, both devices
     leaf = torch.randn((4, 1, 2048, 4, 32), generator=gen, device="cuda")
     on_card = ops.chunk_fingerprint(leaf, 4 * 1024 * 1024)
@@ -720,11 +817,20 @@ FLASH_CASES = [  # (label, B, Sq, Sk, H, Hkv, D, dtype, causal, window)
     # wh-encoder's shape)
     ("wh-train-self", 8, 128, 128, 20, 20, 64, torch.bfloat16, True, 0),
     ("wh-train-cross", 8, 128, 1500, 20, 20, 64, torch.bfloat16, False, 0),
+    # train-rg's local layers at 8 x 128 (the window does not bite),
+    # train-granite's 16 heads over 8, and remat-rg's float32 [2, 32]
+    ("rg-train", 8, 128, 128, 10, 1, 256, torch.bfloat16, True, 2048),
+    ("gm-train", 8, 128, 128, 16, 8, 64, torch.bfloat16, True, 0),
+    ("rg-remat-f32", 2, 32, 32, 10, 1, 256, torch.float32, True, 2048),
+    # torch_quickstart.py's train steps: the smoke smollm_360m, float32,
+    # 8 x 64, 3 heads over 1 of D 20 (its trainer example's are 4 x 64)
+    ("qs-train", 8, 64, 64, 3, 1, 20, torch.float32, True, 0),
 ]
 FLASH_TIMED = ("smollm-train", "paper-train", "rg-prefill", "rg-long-prefill",
                "cq-prefill", "glm-prefill", "g3-prefill", "g3-long-prefill",
                "gm-prefill", "wh-encoder", "wh-cross", "wh-cross-decode",
-               "wh-self", "qvl-prefill", "wh-train-self", "wh-train-cross")
+               "wh-self", "qvl-prefill", "wh-train-self", "wh-train-cross",
+               "rg-train", "gm-train", "rg-remat-f32", "qs-train")
 
 
 def flash_work(q, k, causal: bool, window: int):
@@ -875,6 +981,8 @@ RGLRU_CASES = [  # (label, B, S, W, dtype, h0: None, "zeros" or "random")
     # 2304-token prompt
     ("rg-serve", 8, 32, 2560, torch.bfloat16, "zeros"),
     ("rg-long", 2, 2304, 2560, torch.bfloat16, "zeros"),
+    # train-rg's forward: 8 x 128 from a fresh state (no h0)
+    ("rg-train", 8, 128, 2560, torch.bfloat16, None),
     # tests/test_kernels.py's shapes
     *[(f"sweep-{B}x{S}x{W}", B, S, W, dt, None)
       for B, S, W in [(1, 64, 128), (2, 128, 256), (1, 96, 512)]
@@ -893,7 +1001,7 @@ RGLRU_CASES = [  # (label, B, S, W, dtype, h0: None, "zeros" or "random")
     ("chunk-boundary+1", 2, 56 * 40 + 1, 2560, torch.float32, "random"),
     ("chunk-boundary-1", 2, 56 * 40 - 1, 2560, torch.bfloat16, "random"),
 ]
-RGLRU_TIMED = ("rg-serve", "rg-long")
+RGLRU_TIMED = ("rg-serve", "rg-long", "rg-train")
 RGLRU_TOL = dict(rtol=1e-5, atol=1e-6)        # float32 state, libm ulps
 RGLRU_TOL_BF16 = dict(rtol=8e-3, atol=1e-6)   # one bf16 rounding of h_seq
 # operations per (b, t, w): two sigmoids, log_at, two exps, 1 - e, max,
@@ -1660,6 +1768,28 @@ def smollm_run(seed: int, device: str):
 
 
 @contextlib.contextmanager
+def main_thread_patch(module, **fns):
+    """``module``'s attributes ``fns`` (functions) replaced for the ``with``
+    block in the main thread only: a host thread (``HostRuns``) running a
+    CPU side beside a control keeps the plain functions."""
+    plain = {name: getattr(module, name) for name in fns}
+
+    def switch(name):
+        def call(*args, **kwargs):
+            main = threading.current_thread() is threading.main_thread()
+            return (fns[name] if main else plain[name])(*args, **kwargs)
+        return call
+
+    for name in fns:
+        setattr(module, name, switch(name))
+    try:
+        yield
+    finally:
+        for name, fn in plain.items():
+            setattr(module, name, fn)
+
+
+@contextlib.contextmanager
 def wrong_attention():
     """The control of the smollm check: attention with its masks dropped,
     i.e. train/prefill attention without the causal mask and decode
@@ -1676,11 +1806,9 @@ def wrong_attention():
                              device=k_pos.device).expand_as(k_pos)
         return decode(q, k_cache, v_cache, q_pos + k_pos.shape[1], every)
 
-    ops.attention, ops.decode_attention = no_mask, all_slots
-    try:
+    with main_thread_patch(ops, attention=no_mask,
+                           decode_attention=all_slots):
         yield
-    finally:
-        ops.attention, ops.decode_attention = attention, decode
 
 
 def smollm_readings(seed: int, host, control: bool = False) -> dict:
@@ -1820,11 +1948,8 @@ class FollowPicks:
             self.picks.append((probs.detach().clone(), ids.clone()))
             return vals, ids
 
-        moe.top_k = recording
-        try:
+        with main_thread_patch(moe, top_k=recording):
             yield
-        finally:
-            moe.top_k = plain
 
     @contextlib.contextmanager
     def card(self, strict: bool):
@@ -1851,11 +1976,8 @@ class FollowPicks:
             ids = ids.to(probs.device)
             return torch.gather(probs, -1, ids), ids
 
-        moe.top_k = following
-        try:
+        with main_thread_patch(moe, top_k=following):
             yield
-        finally:
-            moe.top_k = plain
         check(not queue, f"granite gradient gate: {len(queue)} router calls "
               "of the CPU run not made on the card")
 
@@ -1940,44 +2062,70 @@ def host_grad_step(cfg, seed: int):
     return loss, grads, norm, leaves(params), time.perf_counter() - t0
 
 
-class HostGates:
-    """The CPU side of recurrentgemma's gradient gate (``host_grad_step``
-    for each of ``RG_GRAD_SEEDS``, in order) in a thread of its own,
-    started before the build: it needs only the seed, the config and the
-    draw, and runs beside the build and the kernel phase until
-    ``rg_model_phase`` asks for it (torch's ops let go of the GIL).
-    Started after the kernel phase instead, it shared the host's cores
-    with the model phases' CPU runs and both took 2.5x as long."""
+class HostRuns:
+    """The CPU sides of card-against-CPU checks in a thread of their own:
+    ``jobs`` is a list of (key, function of no arguments), run in order,
+    and ``result(key)`` hands a job's result over once.  torch's ops let
+    go of the GIL, so the thread's work overlaps the main thread's card
+    phases; ``threads`` sets the thread's own torch intra-op thread count
+    (OpenMP's count is a thread's own: the main thread's is unchanged).
 
-    def __init__(self):
+    recurrentgemma's gradient gate (``HOST_GATES``) starts before the
+    build and runs beside it and the kernel phase until ``rg_model_phase``
+    asks for it; started after the kernel phase instead, it shared the
+    host's cores with the model phases' CPU runs and both took 2.5x as
+    long.  The dense and frontend model checks' CPU sides (``HOST_RUNS``)
+    start after the MoE model phase, on all host CPUs but two, and run
+    beside the migrate paths, the examples and the trainer migrations:
+    card phases whose host side is one thread dispatching."""
+
+    def __init__(self, jobs, threads=None):
         self.results, self.error = {}, None
-        self.ready = {seed: threading.Event() for seed in RG_GRAD_SEEDS}
-        threading.Thread(target=self._run, daemon=True).start()
+        self.ready = {key: threading.Event() for key, _ in jobs}
+        threading.Thread(target=self._run, args=(jobs, threads),
+                         daemon=True).start()
 
-    def _run(self):
+    def _run(self, jobs, threads):
         try:
-            for seed in RG_GRAD_SEEDS:
-                self.results[seed] = host_grad_step(rg_config(), seed)
-                print(f"[model] recurrentgemma_2b gradient gate's CPU side, "
-                      f"seed {seed}: {self.results[seed][-1]:.1f} s in its "
-                      "thread", flush=True)
-                self.ready[seed].set()
+            if threads:
+                torch.set_num_threads(threads)
+            for key, fn in jobs:
+                t0 = time.perf_counter()
+                self.results[key] = fn()
+                print(f"[model] {key}: {time.perf_counter() - t0:.1f} s in "
+                      f"its thread ({torch.get_num_threads()} torch threads)",
+                      flush=True)
+                self.ready[key].set()
         except BaseException as e:  # noqa: BLE001  (raised by result)
             self.error = e
             for ready in self.ready.values():
                 ready.set()
 
-    def result(self, seed: int):
-        """-> ``host_grad_step``'s result for ``seed`` (handed over once),
-        and the seconds spent waiting for it."""
+    def result(self, key):
+        """-> the result of job ``key`` (handed over once), and the seconds
+        spent waiting for it."""
         t0 = time.perf_counter()
-        self.ready[seed].wait()
+        self.ready[key].wait()
         if self.error is not None:
             raise self.error
-        return self.results.pop(seed), time.perf_counter() - t0
+        return self.results.pop(key), time.perf_counter() - t0
+
+
+def rg_gate_key(seed: int) -> str:
+    return f"recurrentgemma_2b gradient gate's CPU side, seed {seed}"
+
+
+def host_gates() -> HostRuns:
+    """``host_grad_step`` of recurrentgemma_2b for each of
+    ``RG_GRAD_SEEDS``, in a thread (``HostRuns``)."""
+    cfg = rg_config()
+    return HostRuns([(rg_gate_key(seed),
+                      functools.partial(host_grad_step, cfg, seed))
+                     for seed in RG_GRAD_SEEDS])
 
 
 HOST_GATES = None  # set by main()
+HOST_RUNS = None  # set by main()
 
 
 def grad_gate(arch, cfg, params, on_card, seed: int, launches: dict,
@@ -2753,11 +2901,9 @@ def carry_dropped():
     def no_carry_step(h, x, a_param, gate_a, gate_x, *, c=8.0):
         return step(torch.zeros_like(h), x, a_param, gate_a, gate_x, c=c)
 
-    ops.rglru_scan, ref.rglru_decode_step = no_carry_scan, no_carry_step
-    try:
+    with main_thread_patch(ops, rglru_scan=no_carry_scan), \
+            main_thread_patch(ref, rglru_decode_step=no_carry_step):
         yield
-    finally:
-        ops.rglru_scan, ref.rglru_decode_step = scan, step
 
 
 def rg_model_phase() -> dict:
@@ -2805,7 +2951,7 @@ def rg_model_phase() -> dict:
                           f"{k}={v:.3e}" for k, v in out[dtype][-1].items())
                       + (f" (CPU run {t_host:.1f} s)" if not control else ""))
         if seed in RG_GRAD_SEEDS:
-            host, waited = HOST_GATES.result(seed)
+            host, waited = HOST_GATES.result(rg_gate_key(seed))
             print(f"[model] recurrentgemma_2b gradient gate, seed {seed}: "
                   f"waited {waited:.1f} s for its CPU side")
             keep = None
@@ -3276,11 +3422,9 @@ def decay_dropped():
     def no_decay_step(state, q, k, v, i_gate, f_gate):
         return step(state, q, k, v, i_gate, torch.full_like(f_gate, 1e4))
 
-    ops.mlstm_scan, ref.mlstm_decode_step = no_decay_scan, no_decay_step
-    try:
+    with main_thread_patch(ops, mlstm_scan=no_decay_scan), \
+            main_thread_patch(ref, mlstm_decode_step=no_decay_step):
         yield
-    finally:
-        ops.mlstm_scan, ref.mlstm_decode_step = scan, step
 
 
 def xl_model_phase() -> None:
@@ -3491,23 +3635,70 @@ def serve_run(cfg, seed: int, params, device: str):
     return pre.float(), torch.cat(dec, 1).float()
 
 
+def dense_host(arch: str, seed: int) -> dict:
+    """The CPU side of ``arch``'s check for ``seed``: ``serve_run`` on the
+    CPU in each dtype of ``DENSE_LIMITS`` from ``init_lm(seed)`` drawn
+    there.  -> {dtype: (logits, seconds)}."""
+    from repro_torch.models import transformer as T
+
+    params = T.init_lm(dense_config(arch), seed=seed, device="cpu")
+    out = {}
+    for dtype in DENSE_LIMITS[arch]:
+        t0 = time.perf_counter()
+        out[dtype] = (serve_run(dense_config(arch, dtype), seed, params,
+                                "cpu"), time.perf_counter() - t0)
+    return out
+
+
+def card_params(cfg, seed: int, label: str):
+    """``init_lm(seed)`` drawn straight onto the card (the CPU draw's
+    bits); prints its seconds and rate."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    params = T.init_lm(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = sum(t.numel() for t in leaves(params))
+    print(f"[model] {label} seed {seed}: {cfg.num_layers} layers, init on "
+          f"the card {dt:.1f} s ({n} params, {n / dt / 1e6:.0f} M params/s)")
+    return params
+
+
+def host_key(arch: str, seed: int) -> str:
+    return f"{arch} check's CPU side, seed {seed}"
+
+
+def host_runs() -> HostRuns:
+    """The CPU sides of the dense and frontend model checks
+    (``dense_host``, ``frontend_host``), in a thread on all host CPUs but
+    two (``HostRuns``)."""
+    jobs = [(host_key(arch, seed), functools.partial(dense_host, arch, seed))
+            for arch in DENSE for seed in DENSE_SEEDS]
+    jobs += [(host_key(arch, seed), functools.partial(frontend_host, arch,
+                                                      seed))
+             for arch in FRONTEND for seed in FRONTEND_SEEDS]
+    return HostRuns(jobs, threads=max(1, len(os.sched_getaffinity(0)) - 2))
+
+
 def dense_model_phase() -> None:
     """Card against CPU, over ``DENSE_SEEDS`` and in each dtype of
     ``DENSE_LIMITS``: the dense family's logits at full width cut in
-    depth.  The weights are drawn once a seed on the CPU and copied to
-    the card.  Each limit must hold for every seed and fail for the
-    config's control at every seed."""
+    depth.  The CPU side comes from ``HOST_RUNS`` (``dense_host``); the
+    card draws the same weights itself.  Each limit must hold for every
+    seed and fail for the config's control at every seed."""
     for arch in DENSE:
         cfg = dense_config(arch)
         sound = {dtype: [] for dtype in DENSE_LIMITS[arch]}
         ctl = {dtype: [] for dtype in DENSE_LIMITS[arch]}
         for seed in DENSE_SEEDS:
-            params, on_card = host_and_card(cfg, seed, arch)
+            host_out, waited = HOST_RUNS.result(host_key(arch, seed))
+            print(f"[model] {arch} seed {seed}: waited {waited:.1f} s for "
+                  "its CPU side")
+            on_card = card_params(cfg, seed, arch)
             for dtype in DENSE_LIMITS[arch]:
-                t0 = time.perf_counter()
-                host = serve_run(dense_config(arch, dtype), seed, params,
-                                 "cpu")
-                t_host = time.perf_counter() - t0
+                host, t_host = host_out[dtype]
                 for control, out in ((False, sound), (True, ctl)):
                     reset_counts()
                     with (wrong_attention()
@@ -3530,9 +3721,9 @@ def dense_model_phase() -> None:
                           f"{label}, seed {seed}: " + " ".join(
                               f"{k}={v:.3e}" for k, v in
                               out[dtype][-1].items())
-                          + (f" (CPU run {t_host:.1f} s)" if not control
-                             else ""))
-            del params, on_card
+                          + (f" (CPU run {t_host:.1f} s, in the thread)"
+                             if not control else ""))
+            del host_out, on_card
         check_limits(arch, DENSE_LIMITS[arch], sound, ctl)
 
 
@@ -3772,7 +3963,7 @@ def recording_picks(picks, control: bool = False):
     router probabilities."""
     from repro_torch.models import moe
 
-    plain_router, plain_top_k = moe._router, moe.top_k
+    plain_router = moe._router
 
     def router(params, xf, cfg):
         out = plain_router(params, xf, cfg)
@@ -3783,13 +3974,9 @@ def recording_picks(picks, control: bool = False):
         vals, ids = torch.sort(probs, dim=-1, stable=True)
         return vals[..., :k], ids[..., :k]
 
-    moe._router = router
-    if control:
-        moe.top_k = lowest
-    try:
+    with main_thread_patch(moe, _router=router,
+                           **(dict(top_k=lowest) if control else {})):
         yield
-    finally:
-        moe._router, moe.top_k = plain_router, plain_top_k
 
 
 def moe_model_phase() -> None:
@@ -3928,6 +4115,7 @@ def moe_serve_paths(paths) -> None:
 # it moves qwen2-vl's decode logits less than its prefill's (only through
 # the cached keys of the image span): the bf16 decode limit has 2.9x room
 # above the sound readings and 2.5x below the control.
+FRONTEND = ("whisper_large_v3", "qwen2_vl_72b")
 FRONTEND_SEEDS = (0, 1)
 WHISPER_LIMITS = {"bfloat16": dict(prefill=5e-2, decode=5e-2),
                   "float32": dict(prefill=2e-4, decode=2e-4)}
@@ -4021,11 +4209,8 @@ def causal_encoder():
     def run_groups(*args, **kwargs):
         return plain(*args, **{**kwargs, "causal": True})
 
-    T._run_groups = run_groups
-    try:
+    with main_thread_patch(T, _run_groups=run_groups):
         yield
-    finally:
-        T._run_groups = plain
 
 
 def qvl_run(cfg, seed: int, params, device: str, flat_ids: bool = False):
@@ -4060,6 +4245,45 @@ def qvl_run(cfg, seed: int, params, device: str, flat_ids: bool = False):
     return pre.float(), torch.cat(dec, 1).float()
 
 
+def frontend_checks():
+    """{arch: (config maker, run, limits, control context or None (qvl's
+    control is ``flat_ids``), flash and decode launches of a card run)}."""
+    return {
+        "whisper_large_v3": (
+            whisper_config, whisper_run, WHISPER_LIMITS, causal_encoder,
+            # a prefill: 2 encoder + 2 self + 2 cross; a decode step: 2
+            # cross (flash, Sq 1) and 2 self (decode)
+            dict(flash_attention=6 + 4 * 2, decode_attention=4 * 2)),
+        "qwen2_vl_72b": (
+            qvl_config, qvl_run, QVL_LIMITS, None,
+            dict(flash_attention=2, decode_attention=4 * 2)),
+    }
+
+
+def frontend_host(arch: str, seed: int) -> dict:
+    """The CPU side of ``arch``'s check for ``seed``, from ``init_lm(seed)``
+    drawn on the CPU: its run in each dtype, then (whisper) the gradient
+    gate's float32 step on the same draw.  -> {dtype: (logits, seconds)},
+    and under "grad" ``grad_gate``'s ``host`` tuple."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+
+    make_cfg, run, limits, _, _ = frontend_checks()[arch]
+    cfg = make_cfg()
+    params = T.init_lm(cfg, seed=seed, device="cpu")
+    out = {}
+    for dtype in limits:
+        t0 = time.perf_counter()
+        out[dtype] = (run(make_cfg(dtype), seed, params, "cpu"),
+                      time.perf_counter() - t0)
+    if arch in GRAD_LIMITS:
+        t0 = time.perf_counter()
+        loss, grads, norm = grad_step(cfg, params, seed, "cpu")
+        out["grad"] = (loss, grads, norm, leaves(params),
+                       time.perf_counter() - t0)
+    return out
+
+
 def frontend_model_phase() -> None:
     """Card against CPU, over ``FRONTEND_SEEDS`` and in bf16 and float32:
     whisper's logits (``whisper_run``; control ``causal_encoder``) and
@@ -4067,25 +4291,22 @@ def frontend_model_phase() -> None:
     every seed and failing for the control at every seed, with the flash
     and decode launches of each card run checked; whisper's float32
     gradient gate (``grad_gate``, ``GRAD_LIMITS``) on each seed's draw;
-    then ``apply_mrope`` card against CPU (``MROPE_LIMIT``)."""
-    runs = (("whisper_large_v3", whisper_config, whisper_run,
-             WHISPER_LIMITS, causal_encoder,
-             # a prefill: 2 encoder + 2 self + 2 cross; a decode step: 2
-             # cross (flash, Sq 1) and 2 self (decode)
-             dict(flash_attention=6 + 4 * 2, decode_attention=4 * 2)),
-            ("qwen2_vl_72b", qvl_config, qvl_run, QVL_LIMITS, None,
-             dict(flash_attention=2, decode_attention=4 * 2)))
-    for arch, make_cfg, run, limits, control_ctx, want in runs:
+    then ``apply_mrope`` card against CPU (``MROPE_LIMIT``).  The CPU
+    sides come from ``HOST_RUNS`` (``frontend_host``); the card draws the
+    same weights itself."""
+    for arch, (make_cfg, run, limits, control_ctx,
+               want) in frontend_checks().items():
         cfg = make_cfg()
         sound = {dtype: [] for dtype in limits}
         ctl = {dtype: [] for dtype in limits}
         grad = {"float32": []}, {"float32": []}
         for seed in FRONTEND_SEEDS:
-            params, on_card = host_and_card(cfg, seed, arch)
+            host_out, waited = HOST_RUNS.result(host_key(arch, seed))
+            print(f"[model] {arch} seed {seed}: waited {waited:.1f} s for "
+                  "its CPU side")
+            on_card = card_params(cfg, seed, arch)
             for dtype in limits:
-                t0 = time.perf_counter()
-                host = run(make_cfg(dtype), seed, params, "cpu")
-                t_host = time.perf_counter() - t0
+                host, t_host = host_out[dtype]
                 for control, out in ((False, sound), (True, ctl)):
                     reset_counts()
                     if control_ctx is None:
@@ -4108,16 +4329,16 @@ def frontend_model_phase() -> None:
                           f"{label}, seed {seed}: " + " ".join(
                               f"{k}={v:.3e}" for k, v in
                               out[dtype][-1].items())
-                          + (f" (CPU run {t_host:.1f} s)" if not control
-                             else ""))
+                          + (f" (CPU run {t_host:.1f} s, in the thread)"
+                             if not control else ""))
             if arch in GRAD_LIMITS:
                 for out, r in zip(grad, grad_gate(
-                        arch, cfg, params, on_card, seed,
+                        arch, cfg, None, on_card, seed,
                         dict(flash_attention=cfg.num_encoder_layers
                              + 2 * cfg.num_layers),
-                        nonzero=WHISPER_NONZERO)):
+                        nonzero=WHISPER_NONZERO, host=host_out["grad"])):
                     out["float32"].append(r)
-            del params, on_card
+            del host_out, on_card
         check_limits(arch, limits, sound, ctl)
         if arch in GRAD_LIMITS:
             check_limits(f"{arch} gradient gate",
@@ -4315,6 +4536,111 @@ def trainer_migration_paths(paths) -> None:
         check(r.report.replayed_messages > 0, f"{label}: nothing replayed")
 
 
+# what the JAX package's examples print on the CPU (examples/*.py): the
+# virtual times, counts and verdicts, which do not depend on the device,
+# so the port's examples must print them on the card too
+EXAMPLE_LINES = {
+    "ex-quickstart": (
+        "MS2M migration: migration_time=64.82s downtime=1.40s",
+        "migrated state verified bit-exact: True"),
+    "ex-engine": (
+        "engine migration: migration_time=65.00s downtime=1.40s",
+        "requests served by target engine: 180",
+        "migrated engine state verified: True"),
+    "ex-trainer": (
+        "trainer at virtual t=15s: step=74 loss=",
+        "migration done: migration_time=61.17s downtime=36.16s",
+        "target trainer resumed: step=417 loss=",
+        "replayed reference fold matches migrated trainer: True"),
+}
+# examples/live_migration_serving.py's paper-faithful ms2m_cutoff at 16/s
+LIVE_PAPER_FAITHFUL = ("88.83", "30.58")
+LOSS = re.compile(r"loss[ =](\S+)")
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout as a module."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(paths) -> None:
+    """The port's examples (``examples/torch_*.py``) on the card, each a
+    path of its own (lines ``[examples]``):
+
+    * run whole through ``main(["--device", "cuda"])``: the quickstart
+      (30 AdamW steps of the smoke smollm_360m, float32 flash at D 20; a
+      prefill and 8 greedy decode steps at D 20; MS2M-individual of the
+      paper consumer at 6 msg/s), the serving engine (the smoke paper
+      consumer's 2-slot engine as the migrated worker, 120 ms a message)
+      and the StatefulSet trainer (the smoke smollm_360m trained on batch
+      ids, ``ms2m_statefulset``, then the reference fold into a fresh
+      trainer on the card, which must give the migrated trainer's bits);
+      every verdict True, every printed loss finite, and the virtual times
+      and counts equal to the JAX examples' (``EXAMPLE_LINES``);
+    * from the live example: ``measure_replay_speedup`` on the card
+      (sequential decode against ``replay_chunked``'s ``lm_append``; the
+      card's speedup printed), then ``batched_pair``: ``ms2m_cutoff`` at
+      16 msg/s paper-faithful (the cutoff fires; 88.83 s / 30.58 s, as in
+      the JAX example) and with batched replay at the card's speedup
+      (verified; its times follow the speedup, so they are printed only).
+
+    Held on the CPU by the tests only (``tests/test_torch_examples*.py``):
+    the live example's four strategies at 10 msg/s, whose
+    ``ms2m_individual`` run is the ``default`` migrate path's run (the
+    same arguments and row), and the rolling StatefulSet example, whose
+    ``HashConsumer`` replicas do no device work."""
+    from repro_torch.kernels import build
+
+    runs = (("ex-quickstart", "torch_quickstart",
+             ("decode_attention", "flash_attention", "fingerprint_lanes"),
+             "float32"),
+            ("ex-engine", "torch_serving_engine_migration",
+             ("decode_attention", "fingerprint_lanes"), None),
+            ("ex-trainer", "torch_statefulset_trainer_migration",
+             ("flash_attention", "fingerprint_lanes"), "float32"))
+    for label, name, needs, route in runs:
+        mod = load_example(name)
+        launches, (_, text), wall = run_path(
+            label, lambda: _captured(mod.main, ["--device", "cuda"]), needs,
+            route, tag="examples")
+        paths[label] = launches
+        for line in EXAMPLE_LINES[label]:
+            check(line in text, f"{label}: no line holds {line!r}")
+        losses = [float(x) for x in LOSS.findall(text)]
+        check(all(math.isfinite(x) for x in losses),
+              f"{label}: a loss is not finite ({losses})")
+    live = load_example("torch_live_migration_serving")
+    make, cfg = live.make_torch_worker_factory(max_seq=2048, device="cuda")
+    launches, speedup, _ = run_path(
+        "ex-live-speedup", lambda: live.replay_speedup(make, cfg),
+        ("decode_attention",), tag="examples")
+    paths["ex-live-speedup"] = launches
+    print(f"[examples] the card's chunk-parallel replay speedup: {speedup}")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as root:
+        launches, pair, _ = run_path(
+            "ex-live-cutoff16", lambda: live.batched_pair(make, speedup, root),
+            ("decode_attention", "fingerprint_lanes"), tag="examples")
+    paths["ex-live-cutoff16"] = launches
+    paper, batched = pair["paper-faithful"], pair["batched"]
+    got = (f"{paper.migration_time:.2f}", f"{paper.downtime:.2f}")
+    check(got == LIVE_PAPER_FAITHFUL and paper.report.cutoff_fired,
+          f"paper-faithful ms2m_cutoff at 16/s: {got}, cutoff_fired="
+          f"{paper.report.cutoff_fired}; the JAX example gives "
+          f"{LIVE_PAPER_FAITHFUL} with the cutoff fired")
+    check(paper.verified and batched.verified,
+          f"ms2m_cutoff at 16/s: verified {paper.verified} (paper-faithful),"
+          f" {batched.verified} (batched)")
+    print(f"[examples] batched replay at the card's speedup {speedup:.3f}: "
+          f"migration={batched.migration_time!r} s downtime="
+          f"{batched.downtime!r} s cutoff_fired={batched.report.cutoff_fired}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA card", file=sys.stderr)
@@ -4331,8 +4657,8 @@ def main() -> int:
         return out
 
     card_phase()
-    global HOST_GATES
-    HOST_GATES = HostGates()
+    global HOST_GATES, HOST_RUNS
+    HOST_GATES = host_gates()
     timed(build_phase)
     rows = timed(kernel_phase)
     paths = {}
@@ -4341,9 +4667,12 @@ def main() -> int:
     rg = timed(rg_model_phase)
     timed(remat_phase, paths, rg)
     del rg
-    for phase in (xl_model_phase, dense_model_phase, moe_model_phase,
-                  frontend_model_phase):
-        timed(phase)
+    timed(xl_model_phase)
+    timed(moe_model_phase)
+    # the dense and frontend checks' CPU sides, beside the next phases
+    HOST_RUNS = host_runs()
+    print(f"[model] the main thread's torch threads: "
+          f"{torch.get_num_threads()}")
     fold = ("decode_attention", "fingerprint_lanes")
     for argv, label, needs in (
             ([], "default", fold),
@@ -4354,11 +4683,14 @@ def main() -> int:
               "--compression", "int8"], "serving-int8",
              ("decode_attention", "xor_fp_lanes", "int8_fp_lanes"))):
         paths[label] = path_phase(argv, label, needs)
+    timed(examples_phase, paths)
+    timed(trainer_migration_paths, paths)
+    timed(dense_model_phase)
+    timed(frontend_model_phase)
     for phase in (train_paths, train_family_paths, sharded_1x1_phase,
                   rg_serve_paths, xl_paths,
                   dense_serve_paths,
-                  moe_serve_paths, whisper_serve_paths, qvl_serve_path,
-                  trainer_migration_paths):
+                  moe_serve_paths, whisper_serve_paths, qvl_serve_path):
         timed(phase, paths)
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in paths.values())

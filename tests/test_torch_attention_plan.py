@@ -53,6 +53,8 @@ PLAN_SHAPES = [  # (B, Hkv, g, D, itemsize): chip_smoke.py's decode cases
     (3, 1, 12, 200, 4),   # d200-g12
     (3, 2, 2, 20, 4),     # the smoke models' head dim 20
     (3, 2, 2, 20, 2),     # ... in bf16: rows not a multiple of 16 bytes
+    (2, 1, 3, 20, 4),     # qs-serve: torch_quickstart.py's serve part
+    (2, 2, 2, 16, 4),     # engine: torch_serving_engine_migration.py
 ]
 PLAN_S = [1, 31, 32, 100, 128, 777, 1000, 2048, 2560]
 

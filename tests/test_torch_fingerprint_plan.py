@@ -112,3 +112,35 @@ def test_model_of_partials_equals_plain_and_jax(C, R):
 def test_kernel_wrapper_refuses_cpu_words():
     with pytest.raises(ValueError, match="CUDA"):
         fp.fingerprint_lanes(torch.zeros((1, 8, fp.LANES), dtype=torch.int32))
+
+
+# -- chip_smoke.py times every leaf shape of the trainer paths' pushes ---------
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("path,launches", [("train-rg", 520),
+                                           ("train-granite", 37),
+                                           ("train-whisper", 76)])
+def test_chip_smoke_times_every_trainer_push_shape(path, launches):
+    """``push_shapes`` counts one launch a leaf of params, m and v and one
+    for the step count (the launches a push makes on the card), and
+    ``chip_smoke.py`` times each of their shapes, each within the plan's
+    reach."""
+    cs = _chip_smoke()
+    shapes = cs.push_shapes(cs.FP_PUSHES[path])
+    assert sum(shapes.values()) == launches
+    timed = {(C, R) for label, C, R in cs.FP_CASES if label in cs.FP_TIMED}
+    assert set(shapes) <= timed
+    for C, R in shapes:
+        plan = fp.fingerprint_plan(C, R)
+        assert (reads(plan, R) == 1).all()
