@@ -33,11 +33,14 @@ Phases, each fatal on failure (no phase catches its own error):
      training and prefill shapes of the paths, at the sweep of
      ``tests/test_kernels.py`` and on masking edge cases (rows whose first
      kv tile is fully masked, ragged lengths, rows with no valid key),
-     each case on the route its (dtype, head dim) picks (the wgmma
-     counter says which ran: bf16 with D % 16 == 0 on the tensor cores,
-     float32 on the float32 pipes); at the timed shapes of both attention
+     each case on the route its (dtype, head dim) picks (the route's
+     counter says which ran: bf16 with D % 16 == 0 on wgmma's bf16
+     products, float32 and other bf16 head dims on its split tf32
+     products, "tf32x3"); at the timed shapes of both attention
      kernels the profiler also gives the kernel's own device time and
-     shows one kernel launch a call;
+     shows one kernel launch a call, and at the float32 ones the
+     kernel's drift against a float64 version is bounded and the plain
+     version with TF32 products must miss the float32 tolerance;
      both attention kernels also at recurrentgemma_2b's head_dim 256 with
      10 query heads over 1 kv head (its prefill, a 2304-token prompt past
      the 2048 window, its decode cache and a local ring past the window),
@@ -141,7 +144,7 @@ Phases, each fatal on failure (no phase catches its own error):
      serving) and launch the kernels of its path.  Every flash launch of
      ``launch.train``, ``launch.serve`` (smollm_360m and recurrentgemma_2b,
      bf16) must take the wgmma route, and every one of the paper-consumer
-     trainer migrations (float32) the float32 route.  Then training:
+     trainer migrations (float32) the tf32x3 route.  Then training:
      ``repro_torch.launch.train`` with its defaults (smollm_360m at full
      width) for 8 steps, and ``--resume`` to 10 steps from its last image
      (about 13 GB of checkpoint images in a temporary registry under
@@ -250,10 +253,21 @@ torch.backends.cudnn.allow_tf32 = False
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
 PEAK_BF16_OPS_S = 989e12
+# TF32 on the tensor cores, a third of it: the flash kernel's tf32x3 route
+# makes three products of every one
+PEAK_TF32X3_OPS_S = 495e12 / 3
 DECODE_TOL = dict(rtol=1e-5, atol=1e-5)      # float32, split-KV sum order
 DECODE_TOL_BF16 = dict(rtol=2e-2, atol=2e-2)  # bf16 output rounding
 FLASH_TOL = dict(rtol=1e-5, atol=1e-5)       # float32, tile-wise sum order
 FLASH_TOL_BF16 = dict(rtol=2e-2, atol=2e-2)  # bf16 output rounding
+# float32 flash: the drift of the output along itself against a float64
+# version, sum((got - want) * want) / sum(want * want).  FLASH_TOL, element
+# by element, cannot see a bias: products carried through one truncating
+# tensor-core accumulator over whisper's 1500 keys drift by about -1e-5
+# (tests/test_torch_attention_plan.py's model of it), and such a kernel
+# failed whisper's float32 gradient gate (loss 1.2e-6 over its 5e-7 limit,
+# PERF.md); the plain version drifts by 1e-9 to 3e-9
+FLASH_DRIFT = 1e-6
 # card against CPU, worst over SEEDS; each limit lies between the sound
 # readings and its control's (PERF.md, PR 13: on an H100 over seeds 0-4,
 # sound / control).  Paper consumer (float32): the largest gradient
@@ -396,8 +410,8 @@ def card_phase() -> str:
 
 
 NEW_KERNELS = ("xor_fp_kernel", "int8_fp_kernel", "fingerprint_lanes_kernel")
-TENSOR_CORE_KERNELS = ("flash_wgmma_kernel", "mlstm_wgmma_kernel",
-                       "mlstm_state_kernel")
+TENSOR_CORE_KERNELS = ("flash_wgmma_kernel", "flash_tf32x3_kernel",
+                       "mlstm_wgmma_kernel", "mlstm_state_kernel")
 
 
 def build_phase() -> None:
@@ -823,14 +837,20 @@ FLASH_CASES = [  # (label, B, Sq, Sk, H, Hkv, D, dtype, causal, window)
     ("gm-train", 8, 128, 128, 16, 8, 64, torch.bfloat16, True, 0),
     ("rg-remat-f32", 2, 32, 32, 10, 1, 256, torch.float32, True, 2048),
     # torch_quickstart.py's train steps: the smoke smollm_360m, float32,
-    # 8 x 64, 3 heads over 1 of D 20 (its trainer example's are 4 x 64)
+    # 8 x 64, 3 heads over 1 of D 20, and its trainer example's, 4 x 64
     ("qs-train", 8, 64, 64, 3, 1, 20, torch.float32, True, 0),
+    ("ex-trainer-train", 4, 64, 64, 3, 1, 20, torch.float32, True, 0),
+    # whisper_large_v3's float32 gradient gate: the encoder over 1500
+    # frames of a [2, 1500] batch (the largest float32 call of the script)
+    ("wh-gate-f32-encoder", 2, 1500, 1500, 20, 20, 64, torch.float32, False,
+     0),
 ]
 FLASH_TIMED = ("smollm-train", "paper-train", "rg-prefill", "rg-long-prefill",
                "cq-prefill", "glm-prefill", "g3-prefill", "g3-long-prefill",
                "gm-prefill", "wh-encoder", "wh-cross", "wh-cross-decode",
                "wh-self", "qvl-prefill", "wh-train-self", "wh-train-cross",
-               "rg-train", "gm-train", "rg-remat-f32", "qs-train")
+               "rg-train", "gm-train", "rg-remat-f32", "qs-train",
+               "ex-trainer-train", "wh-gate-f32-encoder")
 
 
 def flash_work(q, k, causal: bool, window: int):
@@ -862,10 +882,35 @@ def sdpa_mask(Sq, Sk, causal: bool, window: int):
     return keep
 
 
+def attention64(q, k, v, causal: bool, window: int):
+    """The plain version's function in float64 (the drift's yardstick),
+    with its float32 scale and its finite NEG_INF."""
+    from repro_torch.kernels import ref
+
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qg = q.double().reshape(B, Sq, Hkv, H // Hkv, D) * ref.attn_scale(D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double())
+    s = s.masked_fill(~sdpa_mask(Sq, Sk, causal, window), ref.NEG_INF)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, -1), v.double())
+    return o.reshape(B, Sq, H, D)
+
+
+def drift(got, want) -> float:
+    """sum((got - want) * want) / sum(want * want): a bias along want."""
+    got, want = got.double(), want.double()
+    return float(((got - want) * want).sum() / (want * want).sum())
+
+
 def flash_kernel(gen):
-    """The flash kernel against its plain version at every case, two
-    launches bit-equal; times at ``FLASH_TIMED``'s shapes, the first of
-    them the table's row."""
+    """The flash kernel against its plain version at every case, on the
+    route ``fa.route`` names (its counter moves by the case's two
+    launches), two launches bit-equal; times at ``FLASH_TIMED``'s shapes,
+    the first of them the table's row; at each float32 timed shape the
+    kernel's drift against a float64 version must be within
+    ``FLASH_DRIFT``, and the plain version with TF32 products (the
+    control) must miss ``FLASH_TOL``: the check can tell TF32 from a
+    sound kernel."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -877,23 +922,21 @@ def flash_kernel(gen):
         q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
         k = torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda").to(dtype)
         v = torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda").to(dtype)
-        wgmma_before = fa.WGMMA_LAUNCHES
+        before = fa.WGMMA_LAUNCHES, fa.TF32X3_LAUNCHES
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
         again = fa.flash_attention(q, k, v, causal=causal, window=window)
         want = ref.naive_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         tol = FLASH_TOL if dtype == torch.float32 else FLASH_TOL_BF16
         err = (got.float() - want.float()).abs().max().item()
-        route = ("wgmma" if dtype == torch.bfloat16 and D % 16 == 0
-                 else "float32")
+        route = fa.route(dtype, D)
         print(f"[kernels] flash_attention {label} q[{B},{Sq},{H},{D}] "
               f"k[{B},{Sk},{Hkv},{D}] {str(dtype)[6:]} causal={causal} "
               f"window={window} route={route}: max_abs_err={err:.3e}")
-        check(fa.WGMMA_LAUNCHES - wgmma_before == (2 if route == "wgmma"
-                                                   else 0),
+        moved = (fa.WGMMA_LAUNCHES - before[0], fa.TF32X3_LAUNCHES - before[1])
+        check(moved == ((2, 0) if route == "wgmma" else (0, 2)),
               f"flash {label}: want both launches on the {route} route, "
-              f"the wgmma counter moved by "
-              f"{fa.WGMMA_LAUNCHES - wgmma_before}")
+              f"the (wgmma, tf32x3) counters moved by {moved}")
         check(bool(torch.isfinite(got).all()), f"flash {label}: non-finite")
         check(torch.allclose(got.float(), want.float(), **tol),
               f"flash {label}: kernel disagrees with the plain version "
@@ -908,10 +951,32 @@ def flash_kernel(gen):
         kernel_us = kernel_entry(
             f"flash_attention {label}",
             lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
-            "flash_wgmma_kernel" if route == "wgmma"
-            else "flash_attention_kernel", calls=20 if Sq <= 128 else 5)
+            f"flash_{route}_kernel", calls=20 if Sq <= 128 else 5)
         plain_ms = graph_ms(lambda: ref.naive_attention(
             q, k, v, causal=causal, window=window), reps=reps)
+        extra = {}
+        if dtype == torch.float32:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = ref.naive_attention(q, k, v, causal=causal,
+                                           window=window)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            tf32_err = (tf32 - want).abs().max().item()
+            want64 = attention64(q, k, v, causal, window)
+            drifts = (drift(got, want64), drift(want, want64))
+            print(f"[kernels] flash_attention {label}: control (the plain "
+                  f"version, TF32 products) max_abs_err={tf32_err:.3e}; "
+                  f"drift against float64 {drifts[0]:.2e} (the plain "
+                  f"version's {drifts[1]:.2e})")
+            check(abs(drifts[0]) <= FLASH_DRIFT,
+                  f"flash {label}: the output drifts by {drifts[0]:.2e} "
+                  f"against float64 (FLASH_DRIFT {FLASH_DRIFT:.0e})")
+            extra["drift"] = drifts[0]
+            check(not torch.allclose(tf32, want, **FLASH_TOL),
+                  f"flash {label}: the TF32 control passes FLASH_TOL "
+                  f"({tf32_err:.3e}); the check cannot see TF32")
+            extra["tf32_control_err"] = tf32_err
         qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
         if window and window < Sk:
             lib_kw = dict(attn_mask=sdpa_mask(Sq, Sk, causal, window))
@@ -929,15 +994,22 @@ def flash_kernel(gen):
         nbytes, ops_n = flash_work(q, k, causal, window)
         peak = PEAK_BF16_OPS_S if dtype == torch.bfloat16 else PEAK_F32_OPS_S
         b_ms, b_by = bound(nbytes, ops_n, peak)
+        note = ""
+        if route == "tf32x3":
+            # the route's own floor: three TF32 products on the tensor cores
+            extra["bound_tf32x3_ms"], by = bound(nbytes, ops_n,
+                                                 PEAK_TF32X3_OPS_S)
+            note = (f", {extra['bound_tf32x3_ms'] * 1e3:.3f} us on the "
+                    f"tensor cores at 3 x TF32 ({by})")
         print(f"[kernels] flash_attention {label}: {ms * 1e3:.2f} us a call "
               f"({kernel_us:.2f} us the kernel alone, route {route}), "
               f"{plain_ms * 1e3:.2f} us plain, {library_ms * 1e3:.2f} us "
               f"SDPA, bound {b_ms * 1e3:.3f} us ({b_by}, {nbytes} bytes, "
-              f"{ops_n} operations)")
+              f"{ops_n} operations){note}")
         by_shape[label] = dict(shape=[B, Sq, Sk, H, Hkv, D], route=route,
                                max_abs_err=err, ms=ms, kernel_us=kernel_us,
                                plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by, library_ms=library_ms)
+                               bound_by=b_by, library_ms=library_ms, **extra)
         if row is None:
             row = dict(
                 name="flash_attention", route="cuda",
@@ -2135,7 +2207,7 @@ def grad_gate(arch, cfg, params, on_card, seed: int, launches: dict,
     step's ``host_grad_step`` result from the same draw), on the card
     from a copy of ``on_card`` (sound) and from ``on_card`` itself with
     TF32 products (the control), each card run launching ``launches``
-    (flash on the float32 route); ``follow`` (``FollowPicks``) makes the
+    (flash on the tf32x3 route); ``follow`` (``FollowPicks``) makes the
     card take the CPU's expert picks; the sound run's gradients of the
     leaves at ``nonzero`` (paths) must not be all zero; ``keep`` (a dict)
     receives the sound card run's loss, gradients, grad norm and params
@@ -2177,10 +2249,10 @@ def grad_gate(arch, cfg, params, on_card, seed: int, launches: dict,
             torch.backends.cuda.matmul.allow_tf32 = False
         n = read_counts()
         check({k: n[k] for k in launches} == launches
-              and fa.WGMMA_LAUNCHES == 0,
+              and fa.TF32X3_LAUNCHES == n["flash_attention"],
               f"{arch} gradient gate: launches {n}, "
-              f"{fa.WGMMA_LAUNCHES} on the wgmma route, want {launches} "
-              "on the float32 route")
+              f"{fa.TF32X3_LAUNCHES} on the tf32x3 route, want {launches} "
+              "all on it")
         check(math.isfinite(loss) and math.isfinite(norm)
               and all(bool(torch.isfinite(g).all()) for g in grads),
               f"{arch} gradient gate: loss, grad norm or a gradient on the "
@@ -2242,6 +2314,7 @@ def reset_counts() -> None:
     for mod in mods.values():
         mod.LAUNCHES = 0
     mods["flash_attention"].WGMMA_LAUNCHES = 0
+    mods["flash_attention"].TF32X3_LAUNCHES = 0
     mods["mlstm"].WGMMA_LAUNCHES = 0
     mods["slstm"].CLUSTER_LAUNCHES = 0
     for name in ck.LAUNCHES:
@@ -2258,8 +2331,8 @@ def read_counts() -> dict:
 def run_path(label, fn, needs, flash_route=None, tag="path"):
     """Run ``fn()`` with every counter set to 0 just before and read just
     after; each kernel in ``needs`` must have launched, and with
-    ``flash_route`` ("wgmma" or "float32") every flash launch must have
-    taken that route; the printed line starts with ``[tag]``.  ->
+    ``flash_route`` ("wgmma" or "tf32x3") every flash launch must have
+    taken that route (its counter moved by all of them); the printed line starts with ``[tag]``.  ->
     (launches, fn's result, wall seconds)."""
     from repro_torch.kernels import flash_attention as fa
 
@@ -2269,16 +2342,17 @@ def run_path(label, fn, needs, flash_route=None, tag="path"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
-    wgmma = fa.WGMMA_LAUNCHES
+    on = {"wgmma": fa.WGMMA_LAUNCHES, "tf32x3": fa.TF32X3_LAUNCHES}
     print(f"[{tag}] {label}: wall={wall:.3f} s launches={launches} "
-          f"flash on the wgmma route={wgmma}")
+          f"flash on the wgmma route={on['wgmma']}, on the tf32x3 "
+          f"route={on['tf32x3']}")
     for name in needs:
         check(launches[name] > 0, f"{label}: kernel {name} never launched")
     if flash_route:
         flash = launches["flash_attention"]
-        check(flash > 0 and wgmma == (flash if flash_route == "wgmma" else 0),
-              f"{label}: {wgmma} of {flash} flash launches on the wgmma "
-              f"route, want every one on the {flash_route} route")
+        check(flash > 0 and on[flash_route] == flash,
+              f"{label}: flash launches {flash}, by route {on}; want every "
+              f"one on the {flash_route} route")
     return launches, result, wall
 
 
@@ -3060,7 +3134,7 @@ def remat_phase(paths, rg) -> None:
     under ``full``, each bit-equal to the gate's sound card run under
     ``none`` (loss, grad norm, every gradient, every param after the
     AdamW step), launching ``rglru`` and flash twice as often as it, the
-    flash launches on the float32 route."""
+    flash launches on the tf32x3 route."""
     from repro_torch import configs
     from repro_torch.data import DataConfig, SyntheticTokenDataset
     from repro_torch.models import transformer as T
@@ -3177,7 +3251,7 @@ def remat_phase(paths, rg) -> None:
             return grad_step(cfg, card, seed, "cuda", remat=remat, mem=mem)
 
         launches, (loss, grads, norm), wall = run_path(
-            f"remat-rg-{remat}", run, ("rglru", "flash_attention"), "float32",
+            f"remat-rg-{remat}", run, ("rglru", "flash_attention"), "tf32x3",
             tag="remat")
         paths[f"remat-rg-{remat}"] = launches
         print(f"[remat] recurrentgemma_2b {cfg.num_layers} layers float32, "
@@ -4521,7 +4595,7 @@ def trainer_migration_paths(paths) -> None:
             launches, r, wall = run_path(
                 label, lambda: run_migration_experiment(
                     strategy, 4.0, registry_root=root, worker_factory=make,
-                    **kw), needs, "float32")
+                    **kw), needs, "tf32x3")
         paths[label] = launches
         row = r.row()
         steps = launches["flash_attention"] // layers
@@ -4598,11 +4672,11 @@ def examples_phase(paths) -> None:
 
     runs = (("ex-quickstart", "torch_quickstart",
              ("decode_attention", "flash_attention", "fingerprint_lanes"),
-             "float32"),
+             "tf32x3"),
             ("ex-engine", "torch_serving_engine_migration",
              ("decode_attention", "fingerprint_lanes"), None),
             ("ex-trainer", "torch_statefulset_trainer_migration",
-             ("flash_attention", "fingerprint_lanes"), "float32"))
+             ("flash_attention", "fingerprint_lanes"), "tf32x3"))
     for label, name, needs, route in runs:
         mod = load_example(name)
         launches, (_, text), wall = run_path(

@@ -1,13 +1,18 @@
 // Train/prefill GQA attention with causal and local-window masks, for
-// sm_90a.  Two routes, chosen by the wrapper from (dtype, D) alone:
+// sm_90a.  Two routes, both on the tensor cores, chosen by the wrapper
+// from (dtype, D) alone:
 //
 //   * bf16 with D % 16 == 0 (every bf16 head dim the models use: 64 for
-//     smollm_360m, 256 for recurrentgemma_2b): flash_wgmma_kernel, on the
-//     tensor cores (wgmma) with K/V tiles brought in by TMA;
-//   * float32, and bf16 with another D: flash_attention_kernel, on the
-//     float32 pipes.  Float32 stays off the tensor cores on purpose: their
-//     float32 input is TF32 (10-bit mantissa), which is exactly the error
-//     the paper consumer's card-vs-CPU training check must catch.
+//     smollm_360m, 256 for recurrentgemma_2b): flash_wgmma_kernel, bf16
+//     products (wgmma) with K/V tiles brought in by TMA;
+//   * float32, and bf16 with another D: flash_tf32x3_kernel, "3 x TF32".
+//     One TF32 product rounds each float32 input to a 10-bit mantissa,
+//     which is exactly the error the paper consumer's card-vs-CPU training
+//     check must catch; so each operand x is held as hi = tf32(x) and lo =
+//     tf32(x - hi) (round to nearest, ties away), and each product is
+//     lo.hi + hi.lo + hi.hi into a float32 accumulator: about 22 bits of
+//     each input, within the float32 check of the plain version where one
+//     TF32 product misses it by 20-170x.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:flash_attention
 // (pallas_call body _attn_kernel).  Same function: s = q.k^T in float32,
@@ -18,7 +23,7 @@
 // acc / max(l, 1e-37) in q's dtype.  sm_scale comes from the wrapper:
 // 1/sqrt(D) rounded in float32 (ref.attn_scale), as the plain version
 // scales; the TPU kernel rounds 1/sqrt(D) from double, at most one ulp
-// away.  The float32 route scales q before the product, as the plain
+// away.  The tf32x3 route scales q before the product, as the plain
 // version does; the wgmma route multiplies the float32 score after it
 // (s = sm_scale * (q.k)), one rounding away from the plain version.
 //
@@ -28,7 +33,10 @@
 // MFLOP of causal work (0.25 us on the bf16 tensor cores); at
 // recurrentgemma_2b's 2304-token prefill ([2,2304,10,256] over one kv
 // head, window 2048) the work is 54 GFLOP, 54 us on the tensor cores:
-// operations.
+// operations.  The float32 training shapes are smaller still (the paper
+// consumer's [8,128,8,32] causal: 3 MB and 68 MFLOP, 1 us even on the
+// float32 pipes): a call is a chain of dependent steps per CTA, and the
+// tf32x3 route's design is about shortening it.
 //
 // The wgmma route (flash_wgmma_kernel).  One CTA per (64 query rows, query
 // head, batch row): one warpgroup of 4 warps, 16 rows a warp, which is
@@ -75,23 +83,57 @@
 //    bf16 logits check that has less than 2x room).  V's columns past D
 //    are zero, and so are those of the product: they are not stored.
 //  * Output: acc times one reciprocal of max(l, 1e-37) a row (one rounding
-//    away from the float32 route's division); rows past Sq (the serving
+//    away from a division an element); rows past Sq (the serving
 //    prefill has Sq 32 in a 64-row tile) are masked at the store.
 //
-// The float32 route (flash_attention_kernel), unchanged: one block per (q
-// tile of 64 rows, q head, batch row), four warps of 16 rows each (up to
-// head_dim 128; see below for 256).  The kv tiles of 64 keys are walked
-// in order through shared memory, widened to float32 on load (K rows
-// padded to D + 1 floats, so the 32 lanes' key reads fall in 32 banks).
-// Each lane scores two keys against its warp's 16 rows, the warp reduces
-// the row max and sum by butterflies, writes p to shared memory, and each
-// lane then accumulates its head-dimension columns of p.V for the 16
-// rows.  Head dimension 256: a lane keeps ROWS rows of DPL = D / 32
-// output columns in registers, and the block's tiles are float32 in
-// shared memory.  At ROWS 16 and D 256 that would be 128 accumulators a
-// lane and 213,248 bytes of shared memory a block, so above head_dim 128
-// a warp takes 8 rows (a block 32 query rows): 64 accumulators and
-// 172,288 bytes.
+// The tf32x3 route (flash_tf32x3_kernel).  One CTA per (64 query rows,
+// query head, batch row), as on the wgmma route; its tiles are sized by
+// a plan that depends on D alone (tf_groups, tf_keys, tf_prefetch;
+// kernels/flash_attention.py:flash_f32_plan mirrors it).
+//  * Two warpgroups up to D 128.  At the float32 paths' shapes a CTA
+//    walks one to four kv tiles, each a chain of loads, S, softmax and
+//    P.V with one warp to a scheduler; so warpgroup g takes tiles t_lo +
+//    g, t_lo + g + 2, ..., each with its own K/V^T buffers and its own
+//    (m, l, o), and warpgroup 0 merges the two at the end (both rescaled
+//    to the larger m).  Above D 128 the output accumulator alone is up to
+//    128 registers a thread, and one warpgroup walks every tile.
+//  * Tiles.  Q [64 x D] is loaded once by every thread, scaled in
+//    float32, split into hi and lo and stored K-major, 128-byte swizzled,
+//    in 32-column boxes (128 bytes of float32); columns past D are zero.
+//    K and V^T come in per kv tile of 32 keys (16 at D 256, where Q's hi
+//    and lo alone take 128 KB: 230,400 bytes a CTA), loaded by the
+//    threads as 4-byte values (a warp reads a row's 128 contiguous
+//    bytes), split, and stored: K K-major as it lies, V transposed (tf32
+//    wgmma takes only K-major operands, so V^T [D x keys]).  Up to D 128
+//    the next tile's loads are issued into registers before this tile's
+//    products and stored after them; above, two rows at a time.  TMA is
+//    not used: every element passes through a thread for its split.
+//  * S = Q.K^T: wgmma m64nNk8 .tf32 (N = the tile's keys), both operands
+//    from shared memory, three passes of 4 steps a box: lo.hi, hi.lo,
+//    then hi.hi, the small terms first, each box into a fresh float32
+//    accumulator and the boxes summed on the CUDA cores (see P.V below
+//    for why).
+//  * Online softmax as on the wgmma route; a row's kept keys are one
+//    range [lo, hi] computed once, so a masked tile costs two compares
+//    an element.
+//  * O += P.V: wgmma m64n32k8 .tf32 per 32-column piece of D, P from
+//    registers (hi and lo), V^T from shared memory, the same three
+//    passes, into an accumulator that starts at 0 each tile; o = o * corr
+//    + that tile's sum is then taken on the CUDA cores.  The tensor
+//    cores' float32 accumulation truncates: one accumulator carried
+//    through every tile drifted the output toward zero by 1.3e-5 of
+//    itself at whisper's encoder (1500 keys; a CPU emulation that
+//    truncates each k-step's sum, and the card's 3e-6 to 6e-6 errors and
+//    whisper's float32 gradient gate, agreed), 2.8e-7 with the fresh
+//    accumulator.
+//    tf32's A fragment holds columns c and c + 4 of a step's 8
+//    where the score fragment holds 2c and 2c + 1, so V^T stores the keys
+//    of each group of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7 and P's
+//    fragment is the score registers reordered: the sum over keys is
+//    permuted, the same way at every shape.
+//  * Output: acc / max(l, 1e-37), a division per element as the first
+//    float32 kernel divided; a thread's two neighbouring columns in one
+//    store where D is even.
 //
 // Both routes: GQA and MQA need nothing of their own (a block reads kv
 // head h / (H / Hkv)); tiles wholly above the diagonal or wholly before
@@ -100,7 +142,8 @@
 // shape, so two launches give the same bits (replay's bit-exact
 // verification needs that).
 //
-// Masking subtleties (both routes):
+// Masking subtleties (both routes; on the tf32x3 route also in each
+// warpgroup's own state, which the merge weighs by exp(m - max m)):
 //  * A row's first processed tile can be entirely masked (a window band
 //    that starts inside the tile).  m then stays NEG_INF, every p is
 //    exp(0) = 1 and l, acc gather garbage; the next tile with a real
@@ -125,9 +168,6 @@
 namespace {
 
 constexpr float kNegInf = -0x1.666664p+127f;  // float32(-0.7 * FLT_MAX)
-constexpr int kBlockK = 64;                   // keys per kv tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr int kMaxHeadDim = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -142,212 +182,6 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-// Shared memory, in floats: q tile [block_q][D] (scaled), K tile
-// [kBlockK][D + 1], V tile [kBlockK][D], p [kWarps][rows][kBlockK].
-__host__ __device__ constexpr int smem_floats(int D, int block_q) {
-  return block_q * D + kBlockK * (D + 1) + kBlockK * D + block_q * kBlockK;
-}
-
-// q [B, Sq, H, D]; k, v [B, Sk, Hkv, D]; out [B, Sq, H, D].
-// DPL = head-dimension columns per lane (D <= 32 * DPL); kRows = query
-// rows per warp.
-template <typename T, int DPL, int kRows>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Sk, int H, int Hkv, int D, int causal, int window,
-                       float scale) {
-  constexpr int kBlockQ = kWarps * kRows;  // query rows per block
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + kBlockQ * D;
-  float* vs = ks + kBlockK * (D + 1);
-  float* ps = vs + kBlockK * D;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y;
-  const size_t b = blockIdx.z;
-  const int kvh = h / (H / Hkv);
-  const int q_last = min(q0 + kBlockQ, Sq) - 1;  // last real row of the tile
-
-  for (int e = tid; e < kBlockQ * D; e += kThreads) {
-    const int r = e / D;
-    const int d = e - r * D;
-    const int qp = q0 + r;
-    qs[e] = qp < Sq ? to_f32(q[((b * Sq + qp) * H + h) * D + d]) * scale
-                    : 0.f;
-  }
-
-  // kv tiles to walk: those holding a key that some row of the tile keeps
-  const int nk = (Sk + kBlockK - 1) / kBlockK;
-  int t_lo = 0;
-  int t_hi = nk;
-  const bool empty_row = window > 0 && q_last - (Sk - 1) >= window;
-  if (!empty_row) {
-    if (causal) t_hi = min(nk, q_last / kBlockK + 1);
-    if (window > 0) t_lo = max(0, q0 - window + 1) / kBlockK;
-  }
-
-  const int r0 = warp * kRows;  // this warp's first row in the tile
-  const float* qw = qs + r0 * D;
-  float* pw = ps + r0 * kBlockK;
-  float m[kRows], l[kRows], acc[kRows][DPL];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * kBlockK;
-    __syncthreads();  // the last tile's K/V reads are done; q is stored
-    for (int e = tid; e < kBlockK * D; e += kThreads) {
-      const int r = e / D;
-      const int d = e - r * D;
-      const int kp = k0 + r;
-      const size_t src = ((b * Sk + kp) * Hkv + kvh) * D + d;
-      ks[r * (D + 1) + d] = kp < Sk ? to_f32(k[src]) : 0.f;
-      vs[e] = kp < Sk ? to_f32(v[src]) : 0.f;
-    }
-    __syncthreads();
-
-    // scores of keys k0 + lane and k0 + lane + 32 against the warp's rows
-    float s0[kRows], s1[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) s0[i] = s1[i] = 0.f;
-    const float* ka = ks + lane * (D + 1);
-    const float* kb = ks + (lane + 32) * (D + 1);
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float a = ka[d];
-      const float c = kb[d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float x = qw[i * D + d];
-        s0[i] = fmaf(x, a, s0[i]);
-        s1[i] = fmaf(x, c, s1[i]);
-      }
-    }
-
-    const int kpa = k0 + lane;
-    const int kpb = kpa + 32;
-    const bool in_a = kpa < Sk;
-    const bool in_b = kpb < Sk;
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qp = q0 + r0 + i;
-      const bool ok_a =
-          (!causal || qp >= kpa) && (window <= 0 || qp - kpa < window);
-      const bool ok_b =
-          (!causal || qp >= kpb) && (window <= 0 || qp - kpb < window);
-      const float xa = ok_a ? s0[i] : kNegInf;
-      const float xb = ok_b ? s1[i] : kNegInf;
-      float mx = fmaxf(in_a ? xa : kNegInf, in_b ? xb : kNegInf);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float pa = in_a ? expf(xa - m_new) : 0.f;
-      const float pb = in_b ? expf(xb - m_new) : 0.f;
-      float sum = pa + pb;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) acc[i][j] *= corr;
-      pw[i * kBlockK + lane] = pa;
-      pw[i * kBlockK + lane + 32] = pb;
-    }
-    __syncwarp();
-
-    const int k_end = min(kBlockK, Sk - k0);
-    for (int key = 0; key < k_end; ++key) {
-      float vv[DPL];
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) {
-        const int d = lane + 32 * j;
-        vv[j] = d < D ? vs[key * D + d] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float p = pw[i * kBlockK + key];
-#pragma unroll
-        for (int j = 0; j < DPL; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-      }
-    }
-    __syncwarp();  // p is read before the next tile writes it
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qp = q0 + r0 + i;
-    if (qp >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-37f);
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      const int d = lane + 32 * j;
-      if (d < D) out[((b * Sq + qp) * H + h) * D + d] =
-          from_f32<T>(acc[i][j] / denom);
-    }
-  }
-}
-
-template <typename T, int DPL, int kRows>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Sk, int H, int Hkv, int D, int causal,
-                   int window, float scale, cudaStream_t stream) {
-  constexpr int kBlockQ = kWarps * kRows;
-  // above 48 KB a block's shared memory must be opted into, once per
-  // instantiation (at the largest D it serves), before any graph capture
-  static bool opted_in = false;
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, DPL, kRows>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(sizeof(float) * smem_floats(32 * DPL, kBlockQ)));
-    if (err != cudaSuccess) return err;
-    opted_in = true;
-  }
-  const size_t smem = sizeof(float) * smem_floats(D, kBlockQ);
-  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
-  flash_attention_kernel<T, DPL, kRows><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, Hkv, D,
-      causal, window, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
-                     int B, int Sq, int Sk, int H, int Hkv, int D, int causal,
-                     int window, float scale, cudaStream_t stream) {
-  switch ((D + 31) / 32) {
-    case 1:
-      return launch<T, 1, 16>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal,
-                              window, scale, stream);
-    case 2:
-      return launch<T, 2, 16>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal,
-                              window, scale, stream);
-    case 3:
-      return launch<T, 3, 16>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal,
-                              window, scale, stream);
-    case 4:
-      return launch<T, 4, 16>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal,
-                              window, scale, stream);
-    default:  // 128 < D <= 256
-      return launch<T, 8, 8>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal,
-                             window, scale, stream);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -415,7 +249,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int kvh = h / (H / Hkv);
   const int q_last = min(q0 + kWgRows, Sq) - 1;
 
-  // kv tiles to walk, as in the float32 route
+  // kv tiles to walk: those holding a key that some row of the tile keeps
   const int nk = (Sk + kWgKeys - 1) / kWgKeys;
   int t_lo = 0;
   int t_hi = nk;
@@ -644,31 +478,504 @@ cudaError_t launch_wgmma(const CUtensorMap& qm, const CUtensorMap& km,
   return cudaGetLastError();
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// The tf32x3 route: float32, and bf16 with D % 16 != 0.
+// ---------------------------------------------------------------------------
 
-// The float32 route.  dtype: 0 = float32, 1 = bfloat16 (q, k, v and out
-// share it).  Returns the CUDA error code of the launch (0 on success).
-extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
-                                      const void* v, void* out, int B, int Sq,
-                                      int Sk, int H, int Hkv, int D,
-                                      int causal, int window, float scale,
-                                      void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv != 0 || D < 1 ||
-      D > kMaxHeadDim || B > 65535 || H > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = dispatch<float>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal, window,
-                          scale, st);
-  } else if (dtype == 1) {
-    err = dispatch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal,
-                                  window, scale, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+constexpr int kTfRows = 64;  // query rows per CTA: wgmma's M
+
+// The plan (mirrored by flash_attention.py:flash_f32_plan): D padded to
+// `cols` = NB 32-column boxes in shared memory (128 bytes of float32, the
+// 128-byte swizzle's row); warpgroups a CTA (two up to D 128, taking kv
+// tiles in turn, each with its own K and V^T buffers and its own softmax
+// state, merged at the end); keys per kv tile; whether the next tile's K
+// and V wait in registers while this tile's products run.  V^T's rows
+// hold max(keys, 32) key slots (a whole swizzle row).
+__host__ __device__ constexpr int tf_groups(int cols) {
+  return cols <= 128 ? 2 : 1;
 }
+__host__ __device__ constexpr int tf_keys(int cols) {
+  return cols <= 224 ? 32 : 16;
+}
+__host__ __device__ constexpr bool tf_prefetch(int cols) { return cols <= 128; }
+__host__ __device__ constexpr int tf_vt_keys(int cols) {
+  return tf_keys(cols) < 32 ? 32 : tf_keys(cols);
+}
+// 1 KB of slack to align to the swizzle's 1024-byte period, then hi and lo
+// of Q [64 x cols], and of each warpgroup's K [keys x cols] and V^T
+// [cols x vt_keys]
+__host__ __device__ constexpr int tf_smem_bytes(int cols) {
+  return 1024 + 2 * 4 * (kTfRows * cols +
+                         tf_groups(cols) * (tf_keys(cols) * cols +
+                                            cols * tf_vt_keys(cols)));
+}
+
+// byte offset of element (row, col) of a K-major tile of `rows` rows,
+// boxes of 32 columns one after another, 128-byte swizzle
+__device__ __forceinline__ uint32_t swz(int row, int col, int rows) {
+  return static_cast<uint32_t>((col >> 5) * rows * 128 + row * 128 +
+                               ((((col & 31) >> 2) ^ (row & 7)) << 4) +
+                               ((col & 3) << 2));
+}
+
+// x as tf32 hi + lo, stored at byte offset `off` of the hi and lo tiles
+__device__ __forceinline__ void put_split(uint8_t* hi, uint8_t* lo,
+                                          uint32_t off, float x) {
+  const float h = tf32_rna(x);
+  *reinterpret_cast<float*>(hi + off) = h;
+  *reinterpret_cast<float*>(lo + off) = tf32_rna(x - h);
+}
+
+// two neighbouring outputs in one store (8-byte float2, 4-byte bf16x2)
+__device__ __forceinline__ void store_pair(float* dst, float x0, float x1) {
+  *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float x0,
+                                           float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+}
+
+// a barrier of one warpgroup's 128 threads (ids 1, 2; 0 is __syncthreads)
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(group + 1) : "memory");
+}
+
+// q [B, Sq, H, D], k/v [B, Sk, Hkv, D], out [B, Sq, H, D], all of type T
+// (float, or bf16 widened to float on load).  NB = 32-column boxes of D.
+//
+// Fragment layouts: the accumulator as on the wgmma route (d[4i + e] at
+// row 16w + lane / 4 + 8 * (e / 2), column 8i + 2 * (lane % 4) + e % 2);
+// tf32's A operand from registers takes, for key step i, columns
+// lane % 4 and lane % 4 + 4 of the step's 8, where the accumulator holds
+// 2 * (lane % 4) and + 1.  So V^T holds the keys of each group of 8 in the
+// order 0, 2, 4, 6, 1, 3, 5, 7 (key 8i + j in slot 8i + j / 2 + 4 (j % 2)),
+// and P's fragment is the score fragment's registers in another order: the
+// sum over keys is permuted, the same way at every shape.
+template <typename T, int NB>
+__global__ void __launch_bounds__(128 * tf_groups(32 * NB), 1)
+flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ out, int Sq,
+                    int Sk, int H, int Hkv, int D, int causal, int window,
+                    float scale) {
+  constexpr int kCols = 32 * NB;
+  constexpr int kGroups = tf_groups(kCols);
+  constexpr int kKeys = tf_keys(kCols);
+  constexpr int kVtKeys = tf_vt_keys(kCols);
+  constexpr bool kPrefetch = tf_prefetch(kCols);
+  constexpr int kLoadRows = kKeys / 4;  // rows of a kv tile a warp loads
+  constexpr uint32_t kQBytes = kTfRows * kCols * 4;
+  constexpr uint32_t kKBytes = kKeys * kCols * 4;
+  constexpr uint32_t kVtBytes = kCols * kVtKeys * 4;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const q_hi = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) &
+                                    1023u);
+  uint8_t* const q_lo = q_hi + kQBytes;
+
+  const int tid = threadIdx.x;
+  const int group = tid >> 7;
+  const int lane = tid & 31;
+  const int warp = (tid >> 5) & 3;  // within the warpgroup
+  const int q0 = blockIdx.x * kTfRows;
+  const int h = blockIdx.y;
+  const size_t b = blockIdx.z;
+  const int kvh = h / (H / Hkv);
+  const int q_last = min(q0 + kTfRows, Sq) - 1;
+  uint8_t* const k_hi = q_lo + kQBytes + group * 2 * (kKBytes + kVtBytes);
+  uint8_t* const k_lo = k_hi + kKBytes;
+  uint8_t* const vt_hi = k_lo + kKBytes;
+  uint8_t* const vt_lo = vt_hi + kVtBytes;
+
+  // kv tiles to walk, as on the wgmma route; warpgroup g takes t_lo + g,
+  // t_lo + g + kGroups, ...
+  const int nk = (Sk + kKeys - 1) / kKeys;
+  int t_lo = 0;
+  int t_hi = nk;
+  const bool empty_row = window > 0 && q_last - (Sk - 1) >= window;
+  if (!empty_row) {
+    if (causal) t_hi = min(nk, q_last / kKeys + 1);
+    if (window > 0) t_lo = max(0, q0 - window + 1) / kKeys;
+  }
+
+  // row 4i + warp of a kv tile's K and V as this thread loads it
+  // (columns lane + 32j); keys past Sk and columns past D are zero
+  auto load_row = [&](int t, int i, float (&kx)[NB], float (&vx)[NB]) {
+    const int kp = t * kKeys + 4 * i + warp;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int c = lane + 32 * j;
+      const bool in = kp < Sk && c < D;
+      const size_t src = ((b * Sk + kp) * Hkv + kvh) * D + c;
+      kx[j] = in ? to_f32(k[src]) : 0.f;
+      vx[j] = in ? to_f32(v[src]) : 0.f;
+    }
+  };
+  // ... split into hi and lo: K as it lies (K-major for S = Q.K^T), V
+  // transposed (K-major for O = P.V) with its keys in slot order
+  auto store_row = [&](int i, const float (&kx)[NB], const float (&vx)[NB]) {
+    const int r = 4 * i + warp;
+    const int slot = (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int c = lane + 32 * j;
+      put_split(k_hi, k_lo, swz(r, c, kKeys), kx[j]);
+      put_split(vt_hi, vt_lo, swz(c, slot, kCols), vx[j]);
+    }
+  };
+  // with the prefetch, the next tile waits here during this tile's
+  // products; without it (D > 128, where the output accumulator alone is
+  // up to 128 registers), two rows at a time go to shared memory, both
+  // loaded before either is stored
+  float kr[kPrefetch ? kLoadRows : 1][NB], vr[kPrefetch ? kLoadRows : 1][NB];
+  auto load = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < (kPrefetch ? kLoadRows : 0); ++i)
+      load_row(t, i, kr[i], vr[i]);
+  };
+
+  const int row0 = q0 + warp * 16 + (lane >> 2);  // rows row0, row0 + 8
+  const int col0 = 2 * (lane & 3);
+  // each row's kept keys: lo_key <= key <= hi_key
+  int lo_key[2], hi_key[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    hi_key[r] = causal ? min(qp, Sk - 1) : Sk - 1;
+    lo_key[r] = window > 0 ? qp - window + 1 : 0;
+  }
+  if (kPrefetch && t_lo + group < t_hi) load(t_lo + group);
+  // Q, scaled in float32 before its split (as the plain version scales),
+  // by every thread of the CTA; columns past D are zero, and so add
+  // nothing to a product.  Its loads go out with the first kv tile's, a
+  // batch of rows (up to 32 values a thread) loaded before any is stored
+  {
+    constexpr int kWarps = 4 * kGroups;
+    constexpr int kRows = kTfRows / kWarps;    // a warp's rows of Q
+    constexpr int kBatch = NB <= 4 ? kRows : 4;  // rows loaded together
+    const int w = tid >> 5;
+#pragma unroll 1
+    for (int i0 = 0; i0 < kRows; i0 += kBatch) {
+      float x[kBatch][NB];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int qp = q0 + kWarps * (i0 + i) + w;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const int c = lane + 32 * j;
+          x[i][j] = qp < Sq && c < D
+                        ? to_f32(q[((b * Sq + qp) * H + h) * D + c])
+                        : 0.f;
+        }
+      }
+      // scaled only here: a product next to its load would wait for it
+      // before the next load is issued
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          put_split(q_hi, q_lo, swz(kWarps * (i0 + i) + w, lane + 32 * j,
+                                    kTfRows), x[i][j] * scale);
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();  // Q is in place for both warpgroups
+
+  // the softmax state, set only now: up to D 256 the output accumulator
+  // is 128 registers, which Q's loads above need
+  float o[NB][16];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o[j][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
+
+  for (int t = t_lo + group; t < t_hi; t += kGroups) {
+    if constexpr (kPrefetch) {
+#pragma unroll
+      for (int i = 0; i < kLoadRows; ++i) store_row(i, kr[i], vr[i]);
+      if (t + kGroups < t_hi) load(t + kGroups);  // lands during products
+    } else {
+#pragma unroll 1
+      for (int i = 0; i < kLoadRows; i += 2) {
+        float kx[2][NB], vx[2][NB];
+        load_row(t, i, kx[0], vx[0]);
+        load_row(t, i + 1, kx[1], vx[1]);
+        store_row(i, kx[0], vx[0]);
+        store_row(i + 1, kx[1], vx[1]);
+      }
+    }
+    // the generic proxy's stores, before the async proxy (wgmma) reads them
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    group_sync(group);
+
+    // S = Q.K^T as lo.hi + hi.lo + hi.hi, small terms first, over every
+    // column of the boxes (those past D are zero and add nothing): each
+    // 32-column box into a fresh accumulator (two in turn, the next box's
+    // products running while the last one's are added), the boxes summed
+    // on the CUDA cores, so that no truncating tensor-core sum runs longer
+    // than 12 steps
+    float sc[kKeys / 2];
+    {
+      float part[2][kKeys / 2];
+#pragma unroll
+      for (int bx = 0; bx < NB; ++bx) {
+        float (&acc)[kKeys / 2] = part[bx & 1];
+#pragma unroll
+        for (int i = 0; i < kKeys / 2; ++i) acc[i] = 0.f;
+        fence_regs(acc);
+        wg_fence();
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass) {
+          const uint32_t qa = smem_u32(pass == 0 ? q_lo : q_hi) +
+                              bx * (kTfRows * 128);
+          const uint32_t kb = smem_u32(pass == 1 ? k_lo : k_hi) +
+                              bx * (kKeys * 128);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_tf32_ss(acc, smem_desc(qa + kk * 32, 16, 1024),
+                          smem_desc(kb + kk * 32, 16, 1024),
+                          pass > 0 || kk > 0);
+        }
+        wg_commit();
+        if (bx > 0) {
+          wg_wait<1>();
+          float (&done)[kKeys / 2] = part[(bx - 1) & 1];
+          fence_regs(done);
+#pragma unroll
+          for (int i = 0; i < kKeys / 2; ++i)
+            sc[i] = bx == 1 ? done[i] : sc[i] + done[i];
+        }
+      }
+      wg_wait_all();
+      float (&last)[kKeys / 2] = part[(NB - 1) & 1];
+      fence_regs(last);
+#pragma unroll
+      for (int i = 0; i < kKeys / 2; ++i)
+        sc[i] = NB == 1 ? last[i] : sc[i] + last[i];
+    }
+
+    // mask, row max, online softmax: as on the wgmma route, the score
+    // already scaled
+    const int k0 = t * kKeys;
+    const bool interior = k0 + kKeys <= Sk &&
+                          (!causal || k0 + kKeys - 1 <= q0) &&
+                          (window <= 0 || q0 + kTfRows - 1 - k0 < window);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < kKeys / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * i + col0 + (e & 1);
+        const int r = e >> 1;
+        float x = sc[4 * i + e];
+        if (!interior) {
+          x = key >= lo_key[r] && key <= hi_key[r] ? x : kNegInf;
+        }
+        sc[4 * i + e] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < kKeys / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * i + col0 + (e & 1);
+        const float p = key < Sk ? expf(sc[4 * i + e] - m[e >> 1]) : 0.f;
+        sc[4 * i + e] = p;
+        sum[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+
+    // P as tf32 hi + lo in A's fragment order: (row, key 2c), (row + 8,
+    // key 2c), (row, key 2c + 1), (row + 8, key 2c + 1)
+    uint32_t ph[kKeys / 8][4], pl[kKeys / 8][4];
+#pragma unroll
+    for (int i = 0; i < kKeys / 8; ++i) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float p = sc[4 * i + ((r & 1) << 1) + (r >> 1)];
+        const float hi = tf32_rna(p);
+        ph[i][r] = __float_as_uint(hi);
+        pl[i][r] = __float_as_uint(tf32_rna(p - hi));
+      }
+    }
+
+    // this tile's P.V as lo.hi + hi.lo + hi.hi, in 32-column pieces of D
+    // (two at a time: 32 registers), into a fresh accumulator, then o =
+    // o * corr + it on the CUDA cores: the tensor cores' float32
+    // accumulation truncates, and a sum carried through every tile there
+    // (1500 keys at whisper's encoder) drifts toward zero, by about 1e-5
+    // of the output
+#pragma unroll
+    for (int j0 = 0; j0 < NB; j0 += 2) {
+      constexpr int kPieces = NB < 2 ? NB : 2;
+      float pv[kPieces][16];
+#pragma unroll
+      for (int jj = 0; jj < kPieces; ++jj) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) pv[jj][i] = 0.f;
+        fence_regs(pv[jj]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass) {
+        const uint32_t vb = smem_u32(pass == 1 ? vt_lo : vt_hi);
+#pragma unroll
+        for (int jj = 0; jj < kPieces; ++jj) {
+          if (j0 + jj >= NB) continue;
+#pragma unroll
+          for (int i = 0; i < kKeys / 8; ++i) {
+            const uint32_t addr = vb + (i >> 2) * (kCols * 128) +
+                                  (j0 + jj) * 32 * 128 + (i & 3) * 32;
+            wgmma_tf32_rs(pv[jj], pass == 0 ? pl[i] : ph[i],
+                          smem_desc(addr, 16, 1024));
+          }
+        }
+      }
+      wg_commit();
+      wg_wait_all();
+#pragma unroll
+      for (int jj = 0; jj < kPieces; ++jj) {
+        if (j0 + jj >= NB) continue;
+        fence_regs(pv[jj]);
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          o[j0 + jj][i] = fmaf(o[j0 + jj][i], corr[(i >> 1) & 1], pv[jj][i]);
+      }
+    }
+    group_sync(group);  // the warpgroup is done with its K and V^T
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if constexpr (kGroups == 2) {
+    // warpgroup 1 hands its (m, l, o) over through its own buffers, value
+    // n of its thread i at float 128 n + i (the thread of warpgroup 0 with
+    // the same index holds the same rows and columns); warpgroup 0
+    // rescales both to the larger m and adds them: a part whose rows saw
+    // no kept key (m = NEG_INF) gets weight 0, and a row that no part kept
+    // a key of averages V, as in the reference
+    float* const xfer = reinterpret_cast<float*>(q_lo + kQBytes +
+                                                 2 * (kKBytes + kVtBytes)) +
+                        (tid & 127);
+    if (group == 1) {
+      xfer[0] = m[0];
+      xfer[128] = m[1];
+      xfer[256] = l[0];
+      xfer[384] = l[1];
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) xfer[128 * (4 + 16 * j + i)] = o[j][i];
+    }
+    __syncthreads();
+    if (group == 1) return;
+    float f0[2], f1[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m1 = xfer[128 * r];
+      const float mm = fmaxf(m[r], m1);
+      f0[r] = expf(m[r] - mm);
+      f1[r] = expf(m1 - mm);
+      l[r] = l[r] * f0[r] + xfer[128 * (2 + r)] * f1[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int r = (i >> 1) & 1;
+        o[j][i] = o[j][i] * f0[r] + xfer[128 * (4 + 16 * j + i)] * f1[r];
+      }
+  }
+  // acc / max(l, 1e-37), a division per element as the first float32
+  // kernel divided; a thread's two neighbouring columns in one store where
+  // D is even
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    if (qp >= Sq) continue;
+    const float denom = fmaxf(l[r], 1e-37f);
+    T* dst = out + ((b * Sq + qp) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = 32 * j + 8 * i + col0;
+        const float x0 = o[j][4 * i + 2 * r] / denom;
+        const float x1 = o[j][4 * i + 2 * r + 1] / denom;
+        if (col + 1 < D && D % 2 == 0) {
+          store_pair(dst + col, x0, x1);
+        } else {
+          if (col < D) dst[col] = from_f32<T>(x0);
+          if (col + 1 < D) dst[col + 1] = from_f32<T>(x1);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int NB>
+cudaError_t launch_tf32x3(const void* q, const void* k, const void* v,
+                          void* out, int B, int Sq, int Sk, int H, int Hkv,
+                          int D, int causal, int window, float scale,
+                          cudaStream_t stream) {
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_tf32x3_kernel<T, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tf_smem_bytes(32 * NB));
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  const dim3 grid((Sq + kTfRows - 1) / kTfRows, H, B);
+  flash_tf32x3_kernel<T, NB>
+      <<<grid, 128 * tf_groups(32 * NB), tf_smem_bytes(32 * NB), stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, Hkv, D,
+          causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_tf32x3(const void* q, const void* k, const void* v,
+                            void* out, int B, int Sq, int Sk, int H, int Hkv,
+                            int D, int causal, int window, float scale,
+                            cudaStream_t stream) {
+#define TF32X3_CASE(nb)                                                     \
+  case nb:                                                                  \
+    return launch_tf32x3<T, nb>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal, \
+                                window, scale, stream);
+  switch ((D + 31) / 32) {
+    TF32X3_CASE(1)
+    TF32X3_CASE(2)
+    TF32X3_CASE(3)
+    TF32X3_CASE(4)
+    TF32X3_CASE(5)
+    TF32X3_CASE(6)
+    TF32X3_CASE(7)
+    default:
+      return launch_tf32x3<T, 8>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal,
+                                 window, scale, stream);
+  }
+#undef TF32X3_CASE
+}
+
+}  // namespace
 
 // The wgmma route: q, k, v and out bf16, contiguous, 16-byte aligned,
 // D % 16 == 0 and D <= 256.  Returns the CUDA error code of the launch
@@ -712,4 +1019,26 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
                                               Hkv, D, causal, window, scale,
                                               st));
   }
+}
+
+// The tf32x3 route: float32, and bf16 with D % 16 != 0.  dtype: 0 =
+// float32, 1 = bfloat16 (q, k, v and out share it).  Returns the CUDA
+// error code of the launch (0 on success).
+extern "C" int flash_attention_tf32x3_launch(int dtype, const void* q,
+                                             const void* k, const void* v,
+                                             void* out, int B, int Sq, int Sk,
+                                             int H, int Hkv, int D, int causal,
+                                             int window, float scale,
+                                             void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv != 0 || D < 1 ||
+      D > kMaxHeadDim || B > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return static_cast<int>(dispatch_tf32x3<float>(
+        q, k, v, out, B, Sq, Sk, H, Hkv, D, causal, window, scale, st));
+  if (dtype == 1)
+    return static_cast<int>(dispatch_tf32x3<__nv_bfloat16>(
+        q, k, v, out, B, Sq, Sk, H, Hkv, D, causal, window, scale, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,8 @@
 // Hopper building blocks shared by the port's tensor-core kernels
 // (csrc/flash_attention.cu and csrc/mlstm.cu): mbarriers, TMA tile loads,
-// wgmma shared-memory descriptors and products, and the host-side encoding
-// of TMA tensor maps.  One definition, so that every kernel issues the
-// same instructions for the same operation.
+// wgmma shared-memory descriptors and products (bf16 and tf32), and the
+// host-side encoding of TMA tensor maps.  One definition, so that every
+// kernel issues the same instructions for the same operation.
 //
 // The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint (the library links no libcuda),
@@ -119,6 +119,11 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// all but the last N committed groups are done
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // keeps the compiler from moving accumulator reads and writes across the
 // asynchronous wgmma's issue and wait
 template <int N>
@@ -168,6 +173,69 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// tf32 products (csrc/flash_attention.cu's tf32x3 route).  tf32 operands are
+// float32 words whose low 13 mantissa bits are zero (cvt.rna.tf32.f32);
+// tf32 wgmma takes only K-major shared-memory operands (no transpose bits)
+// and a depth of 8 (32 bytes, as bf16's 16).
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// d[64 x 32] (+)= A[64 x 8] . B[8 x 32]; A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 16] (+)= A[64 x 8] . B[8 x 16]; A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[8], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 32] += A[64 x 8] . B[8 x 32]; A from registers (four tf32 words a
+// thread: rows lane / 4 and + 8 of the warp's 16, columns lane % 4 and + 4,
+// in the order (r, c), (r + 8, c), (r, c + 4), (r + 8, c + 4)), B K-major
+// in shared memory
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

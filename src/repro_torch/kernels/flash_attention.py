@@ -6,10 +6,13 @@ says what bounds it and how its design meets that.  Its plain PyTorch
 version is ``repro_torch.kernels.ref.naive_attention``, which
 ``ops.attention`` runs for CPU tensors.
 
-Two routes, picked by ``route(dtype, D)`` and nothing else: bf16 with
-``D % 16 == 0`` runs on the tensor cores (``wgmma``, K/V tiles by TMA);
-float32, and bf16 with another D, run on the float32 pipes.  Float32 is
-kept off the tensor cores because they would round its products to TF32.
+Two routes, both on the tensor cores, picked by ``route(dtype, D)`` and
+nothing else: bf16 with ``D % 16 == 0`` runs ``wgmma`` on bf16 (K/V tiles
+by TMA); float32, and bf16 with another D, run "tf32x3": each float32
+operand x is held as tf32 hi = rna(x) and lo = rna(x - hi), and each
+product is lo.hi + hi.lo + hi.hi into a float32 accumulator, which keeps
+float32's accuracy where one TF32 product (10-bit mantissa) would not.
+``flash_f32_plan(D)`` sizes that route's tiles, as its launch code does.
 
 The reference has no backward kernel (JAX differentiates its jnp path),
 and neither has the port yet: ``FlashAttention``'s backward recomputes
@@ -23,6 +26,7 @@ always sums in the same order: replay stays bit-exact on the card.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -32,6 +36,7 @@ from repro_torch.kernels.ref import attn_scale
 
 LAUNCHES = 0  # wrapper calls that launched a kernel (main-path evidence)
 WGMMA_LAUNCHES = 0  # of those, the ones on the wgmma route
+TF32X3_LAUNCHES = 0  # ... and the ones on the tf32x3 route
 
 MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -39,22 +44,52 @@ _entries = {}
 
 
 def route(dtype: torch.dtype, D: int) -> str:
-    """"wgmma" (bf16, D a multiple of 16: tensor cores) or "float32" (the
-    float32 pipes: float32, and bf16 with another D)."""
+    """"wgmma" (bf16, D a multiple of 16: bf16 products) or "tf32x3"
+    (float32, and bf16 with another D: split tf32 products)."""
     if dtype not in _DTYPE_CODES or not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"dtype {dtype}, D={D}: the kernel takes "
                          f"{list(_DTYPE_CODES)} and D <= {MAX_HEAD_DIM}")
-    return "wgmma" if dtype == torch.bfloat16 and D % 16 == 0 else "float32"
+    return "wgmma" if dtype == torch.bfloat16 and D % 16 == 0 else "tf32x3"
+
+
+SMEM_PER_BLOCK = 232448  # bytes of shared memory a block may take (H100)
+
+
+class F32Plan(NamedTuple):
+    """The tf32x3 route's tiles (csrc/flash_attention.cu: tf_groups,
+    tf_keys, tf_prefetch, tf_smem_bytes)."""
+    cols: int        # D padded to 32-column boxes: the products' depth
+    groups: int      # warpgroups a CTA, taking kv tiles in turn
+    keys: int        # keys per kv tile (the N of S = Q.K^T)
+    prefetch: bool   # the next tile's K and V wait in registers
+    smem_bytes: int  # dynamic shared memory of a CTA
+
+
+def flash_f32_plan(D: int) -> F32Plan:
+    """Tiles for head dim ``D``: Q [64 x cols] and, for each warpgroup, K
+    [keys x cols] and V^T [cols x max(keys, 32)] in shared memory as tf32
+    hi and lo, 1 KB to align them.  Up to D 128 two warpgroups take 32-key
+    tiles in turn, each loading its next one during its products (64
+    floats a thread at most); above, one warpgroup, and at D 256 16-key
+    tiles, where Q's hi and lo alone take 128 KB."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"D={D}: the kernel takes 1 <= D <= {MAX_HEAD_DIM}")
+    cols = -(-D // 32) * 32
+    groups = 2 if cols <= 128 else 1
+    keys = 32 if cols <= 224 else 16
+    smem = 1024 + 2 * 4 * (64 * cols
+                           + groups * (keys * cols + cols * max(keys, 32)))
+    return F32Plan(cols, groups, keys, cols <= 128, smem)
 
 
 def _launcher(name: str):
     if name not in _entries:
         p, i = ctypes.c_void_p, ctypes.c_int
         args = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
-        if name == "float32":
+        if name == "tf32x3":
             args = [i] + args
         _entries[name] = build.entry(
-            {"float32": "flash_attention_launch",
+            {"tf32x3": "flash_attention_tf32x3_launch",
              "wgmma": "flash_attention_wgmma_launch"}[name], args)
     return _entries[name]
 
@@ -65,7 +100,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     Launches the CUDA kernel of ``route(q.dtype, D)``; every tensor must
     lie on the current CUDA device, contiguous, float32 or bfloat16 alike
     (16-byte aligned on the wgmma route)."""
-    global LAUNCHES, WGMMA_LAUNCHES
+    global LAUNCHES, WGMMA_LAUNCHES, TF32X3_LAUNCHES
     if not q.is_cuda:
         raise ValueError("flash_attention kernel needs CUDA tensors "
                          "(ops.attention runs the plain version on CPU)")
@@ -90,15 +125,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if path == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention inputs must be 16-byte aligned "
                          "on the wgmma route")
-    out = torch.empty_like(q)
+    out = build.empty_written(q.shape, q.dtype, q.device)  # every row written
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
             Sk, H, Hkv, D, int(bool(causal)), int(window or 0),
             attn_scale(D), torch.cuda.current_stream(q.device).cuda_stream)
-    if path == "float32":
+    if path == "tf32x3":
         args = (_DTYPE_CODES[q.dtype],) + args
     build.check("flash_attention", _launcher(path)(*args))
     LAUNCHES += 1
     WGMMA_LAUNCHES += path == "wgmma"
+    TF32X3_LAUNCHES += path == "tf32x3"
     return out
 
 

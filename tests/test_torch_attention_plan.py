@@ -1,13 +1,15 @@
 """The attention kernels' host-side choices, and the arithmetic of the
-flash kernel's tensor-core route, on the CPU.
+flash kernel's two tensor-core routes, on the CPU.
 
 The CUDA kernels themselves run only on a card (``tests/test_torch_gpu.py``
 and ``chip_smoke.py``); what decides how they run is Python and is tested
-here: the flash kernel's route as a function of (dtype, D), the decode
-kernel's cluster plan, and a plain-torch model of the ``wgmma`` route's
-arithmetic (bf16 products summed in float32, the scale applied after the
-product, softmax weights fed to the P.V product as bf16 hi + lo) held
-against ``ref.naive_attention``.
+here: the flash kernel's route as a function of (dtype, D), the tf32x3
+route's tile plan, the decode kernel's cluster plan, and plain-torch models
+of both routes' arithmetic held against ``ref.naive_attention``: the
+``wgmma`` route's (bf16 products summed in float32, the scale applied
+after the product, softmax weights fed to the P.V product as bf16 hi +
+lo) and the tf32x3 route's (every operand as tf32 hi + lo, three products
+each, P.V summed in the kernel's key order).
 """
 import numpy as np
 import pytest
@@ -21,15 +23,16 @@ from repro_torch.kernels import ref
 
 ROUTES = [  # (dtype, D, route)
     *[(torch.bfloat16, D, "wgmma") for D in (16, 32, 48, 64, 128, 144, 256)],
-    *[(torch.bfloat16, D, "float32") for D in (1, 8, 20, 40, 200, 250)],
-    *[(torch.float32, D, "float32") for D in (16, 20, 32, 64, 128, 200, 256)],
+    *[(torch.bfloat16, D, "tf32x3") for D in (1, 8, 20, 40, 200, 250)],
+    *[(torch.float32, D, "tf32x3") for D in (16, 20, 32, 64, 128, 200, 256)],
 ]
 
 
 @pytest.mark.parametrize("dtype,D,want", ROUTES)
 def test_flash_route_is_a_function_of_dtype_and_head_dim(dtype, D, want):
-    """bf16 with D % 16 == 0 runs on the tensor cores; float32 never does
-    (they would round its products to TF32), nor bf16 with another D."""
+    """bf16 with D % 16 == 0 runs bf16 products; float32, and bf16 with
+    another D, split tf32 products (one TF32 product would round float32
+    to a 10-bit mantissa)."""
     assert fa.route(dtype, D) == want
     assert fa.route(dtype, D) == fa.route(dtype, D)
 
@@ -185,3 +188,238 @@ def test_wgmma_arithmetic_model_matches_plain_and_needs_hi_lo(B, Sq, Sk, H,
                                ref.naive_attention(q, k, v, causal=True,
                                                    window=window).float(),
                                rtol=2e-2, atol=2e-2)
+
+
+# -- the tf32x3 route's plan -----------------------------------------------------
+
+def test_flash_f32_plan_fits_every_head_dim():
+    """For every D of 1..256: pure; D padded to whole 32-column boxes (a
+    multiple of tf32's depth of 8), every tile within a block's shared
+    memory, and the registers that hold the next tile (keys / 4 rows of
+    cols / 32 columns a lane, K and V) at most 64 a thread."""
+    for D in range(1, fa.MAX_HEAD_DIM + 1):
+        plan = fa.flash_f32_plan(D)
+        assert plan == fa.flash_f32_plan(D)
+        assert plan.cols % 32 == 0 and D <= plan.cols < D + 32, D
+        assert plan.groups in (1, 2) and plan.keys in (16, 32), D
+        assert plan.smem_bytes <= fa.SMEM_PER_BLOCK, D
+        held = 2 * (plan.keys // 4) * (plan.cols // 32)
+        assert not plan.prefetch or held <= 64, D
+
+
+def test_flash_f32_plan_at_the_path_shapes():
+    """The paths' head dims: 20 (the examples), 32 (the paper consumer),
+    64 (whisper's float32 gate): two warpgroups on 32-key tiles, the next
+    one loaded during the products; 256 (recurrentgemma's float32 gate):
+    one warpgroup on 16-key tiles in 230,400 bytes, where 32 keys would
+    need 263,168."""
+    assert fa.flash_f32_plan(20) == fa.F32Plan(32, 2, 32, True, 50176)
+    assert fa.flash_f32_plan(32) == fa.flash_f32_plan(20)
+    assert fa.flash_f32_plan(64) == fa.F32Plan(64, 2, 32, True, 99328)
+    assert fa.flash_f32_plan(256) == fa.F32Plan(256, 1, 16, False, 230400)
+    assert 1024 + 8 * (64 * 256 + 2 * 32 * 256) > fa.SMEM_PER_BLOCK
+    with pytest.raises(ValueError):
+        fa.flash_f32_plan(257)
+
+
+# -- a plain model of the tf32x3 route's arithmetic -----------------------------
+
+def tf32(x):
+    """Round float32 to tf32 as cvt.rna.tf32.f32 does: to nearest, ties
+    away from zero, on the 13 low mantissa bits (the bits are sign and
+    magnitude, so adding half an ulp to them rounds the magnitude)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def bf16(x):
+    return x.bfloat16().float()
+
+
+def split3(rnd):
+    """hi = rnd(x), lo = rnd(x - hi): three products lo.hi + hi.lo + hi.hi."""
+    def split(x):
+        hi = rnd(x)
+        return hi, rnd(x - hi)
+    return split
+
+
+def split1(x):
+    """One TF32 product: hi.hi, lo = 0."""
+    return tf32(x), torch.zeros_like(x)
+
+
+def slot_order(n: int) -> list:
+    """Keys 0..n-1 of a kv tile in the order of their V^T slots: within a
+    group of 8, slot (j / 2) + 4 (j % 2) holds key j (the tf32 A
+    fragment's columns c and c + 4 are the score fragment's 2c and
+    2c + 1)."""
+    slot = [(j & ~7) | ((j & 7) >> 1) | ((j & 1) << 2) for j in range(n)]
+    return sorted(range(n), key=slot.__getitem__)
+
+
+def tf32x3_model(q, k, v, *, causal: bool, window: int, split):
+    """The tf32x3 route's arithmetic in plain torch, float32: q scaled in
+    float32, every operand split by ``split`` into (hi, lo) and each
+    product lo.hi + hi.lo + hi.hi in that order; kv tiles of
+    ``flash_f32_plan(D).keys`` keys taken in turn by the plan's
+    warpgroups, each walking its own online softmax (masked scores
+    NEG_INF, keys past Sk out; each tile's P.V over its keys in slot
+    order, then added to the rescaled o), merged at the end; the output
+    acc / max(l, 1e-37)."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    plan = fa.flash_f32_plan(D)
+    qg = (q.float() * ref.attn_scale(D)).reshape(B, Sq, Hkv, g, D)
+    kf, vf = k.float(), v.float()
+    qp = torch.arange(Sq)[:, None]
+    kp = torch.arange(Sk)[None, :]
+    keep = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        keep &= qp >= kp
+    if window:
+        keep &= qp - kp < window
+
+    def product(eq, a, b):
+        (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
+        return ((torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo))
+                + torch.einsum(eq, a_hi, b_hi))
+
+    # one (m, l, o) per warpgroup, over the tiles it takes in turn
+    state = [[torch.full((B, Hkv, g, Sq), ref.NEG_INF),
+              torch.zeros((B, Hkv, g, Sq)), torch.zeros((B, Hkv, g, Sq, D))]
+             for _ in range(plan.groups)]
+    for t, k0 in enumerate(range(0, Sk, plan.keys)):
+        m, l, o = state[t % plan.groups]
+        ks = slice(k0, min(k0 + plan.keys, Sk))
+        s = product("bqhgd,bkhd->bhgqk", qg, kf[:, ks])
+        s = torch.where(keep[:, ks], s, ref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        order = slot_order(ks.stop - k0)
+        pv = product("bhgqk,bkhd->bhgqd", p[..., order], vf[:, ks][:, order])
+        state[t % plan.groups] = [m_new, l * corr + p.sum(-1),
+                                  o * corr[..., None] + pv]
+    m, l, o = state[0]
+    for m1, l1, o1 in state[1:]:  # the merge: both to the larger m
+        mm = torch.maximum(m, m1)
+        f0, f1 = torch.exp(m - mm), torch.exp(m1 - mm)
+        l = l * f0 + l1 * f1
+        o = o * f0[..., None] + o1 * f1[..., None]
+    o = o / l.clamp_min(1e-37)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+
+
+# float32 cases of chip_smoke.py:FLASH_CASES, cut to few rows and heads,
+# and whisper's float32 gate shape cut to one head of 64 rows:
+# (label, B, Sq, Sk, H, Hkv, D, causal, window)
+TF32X3_CASES = [
+    ("paper-train", 1, 128, 128, 2, 1, 32, True, 0),
+    ("qs-train", 1, 64, 64, 3, 1, 20, True, 0),
+    ("rg-remat-f32", 1, 32, 32, 2, 1, 256, True, 2048),
+    ("d200-ragged", 1, 77, 77, 2, 1, 200, True, 0),
+    ("no-valid-key", 1, 128, 48, 2, 1, 16, True, 16),
+    ("first-tile-masked", 1, 160, 160, 2, 1, 64, True, 40),
+    ("wh-gate-f32-encoder", 1, 64, 1500, 1, 1, 64, False, 0),
+]
+FLASH_TOL = dict(rtol=1e-5, atol=1e-5)  # chip_smoke.py:FLASH_TOL
+
+
+@pytest.mark.parametrize("label,B,Sq,Sk,H,Hkv,D,causal,window", TF32X3_CASES)
+def test_tf32x3_arithmetic_model_keeps_float32_accuracy(label, B, Sq, Sk, H,
+                                                        Hkv, D, causal,
+                                                        window):
+    """The split model lies within the kernel check's float32 tolerance of
+    the plain version, at least 100x closer than one TF32 product (so the
+    check can tell TF32 from a sound kernel) and at least 5x closer than a
+    3 x bf16 split (which misses the tolerance)."""
+    rng = np.random.default_rng(D * 1000 + Sq + window)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    assert fa.route(q.dtype, D) == "tf32x3"
+    want = ref.naive_attention(q, k, v, causal=causal, window=window)
+    errs = {}
+    for name, split in (("tf32x3", split3(tf32)), ("tf32", split1),
+                        ("bf16x3", split3(bf16))):
+        got = tf32x3_model(q, k, v, causal=causal, window=window, split=split)
+        assert bool(torch.isfinite(got).all()), name
+        errs[name] = (got - want).abs().max().item()
+        if name == "tf32x3":
+            torch.testing.assert_close(got, want, **FLASH_TOL)
+    assert 100 * errs["tf32x3"] < errs["tf32"], errs
+    assert 5 * errs["tf32x3"] < errs["bf16x3"], errs
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    """The model's tf32 rounding: 10 mantissa bits kept, a tie rounds away
+    from zero for either sign, and x - tf32(x) is exact."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -20,
+                      1 + 1.5 * ulp, 3.0], dtype=torch.float32)
+    want = torch.tensor([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0])
+    assert torch.equal(tf32(x), want)
+    hi = tf32(x)
+    assert torch.equal((x - hi) + hi, x)
+    assert torch.equal(tf32(hi), hi)
+
+
+def truncating_product(a, b, acc=None):
+    """acc + a [M, K] @ b [N, K]^T as a tensor core's float32 accumulator
+    is modelled here: the exact sum of each k-step's 8 products added to
+    the accumulator, and the result truncated toward zero to float32."""
+    acc = (torch.zeros((a.shape[0], b.shape[0])) if acc is None
+           else acc).double()
+    for k0 in range(0, a.shape[1], 8):
+        x = acc + a[:, k0:k0 + 8].double() @ b[:, k0:k0 + 8].double().T
+        y = x.float().double()
+        acc = torch.where(y.abs() > x.abs(),
+                          torch.nextafter(y.float(), torch.zeros(())).double(),
+                          y)
+    return acc.float()
+
+
+def test_tf32x3_pv_sum_starts_fresh_each_tile():
+    """Why the tf32x3 route adds each tile's P.V to o on the CUDA cores:
+    with products into one truncating accumulator over whisper's 1500
+    keys (a head of 64 rows, D 64, 32-key tiles) the output drifts toward
+    zero by about 1e-5 of itself: within FLASH_TOL element by element,
+    but a bias that whisper's float32 gradient gate sees in its loss; a
+    fresh accumulator each tile keeps the drift 10x smaller."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((64, 64), (1500, 64), (1500, 64)))
+    want = ref.naive_attention(q[None, :, None], k[None, :, None],
+                               v[None, :, None], causal=False)[0, :, 0]
+    split = split3(tf32)
+    qh, ql = split(q * ref.attn_scale(64))
+    drift = {}
+    for fresh in (False, True):
+        m = torch.full((64,), ref.NEG_INF)
+        l, o = torch.zeros(64), torch.zeros((64, 64))
+        for k0 in range(0, 1500, fa.flash_f32_plan(64).keys):
+            kt, vt = k[k0:k0 + 32], v[k0:k0 + 32]
+            (kh, kl), (vh, vl) = split(kt), split(vt)
+            s = truncating_product(ql, kh)
+            s = truncating_product(qh, kh, truncating_product(qh, kl, s))
+            m_new = torch.maximum(m, s.amax(-1))
+            corr, p = torch.exp(m - m_new), torch.exp(s - m_new[:, None])
+            l = l * corr + p.sum(-1)
+            ph, pl = split(p)
+            if fresh:
+                pv = None
+                for a, b in ((pl, vh), (ph, vl), (ph, vh)):
+                    pv = truncating_product(a, b.T.contiguous(), pv)
+                o = o * corr[:, None] + pv
+            else:  # one accumulator: the running o itself
+                o = o * corr[:, None]
+                for a, b in ((pl, vh), (ph, vl), (ph, vh)):
+                    o = truncating_product(a, b.T.contiguous(), o)
+            m = m_new
+        got = o / l[:, None]
+        drift[fresh] = float(((got - want) * want).sum() / (want * want).sum())
+        if fresh:
+            torch.testing.assert_close(got, want, **FLASH_TOL)
+    assert drift[False] < -5e-6, drift
+    assert 10 * abs(drift[True]) < abs(drift[False]), drift

@@ -541,19 +541,21 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, Hkv, D, causal,
                                      (torch.float32, 64),
                                      (torch.float32, 256)])
 def test_flash_route_counter(cuda, dtype, D):
-    """bf16 with D % 16 == 0 launches the tensor-core kernel; float32, and
-    bf16 with another D, the float32 one: LAUNCHES counts both,
-    WGMMA_LAUNCHES the first."""
+    """bf16 with D % 16 == 0 launches the bf16 wgmma kernel; float32, and
+    bf16 with another D, the tf32x3 one: LAUNCHES counts both,
+    WGMMA_LAUNCHES the first and TF32X3_LAUNCHES the second."""
     from repro_torch.kernels import flash_attention as fa
 
     q, k, v = _flash_inputs(cuda, 2, 80, 80, 4, 2, D, dtype)
-    total, wgmma = fa.LAUNCHES, fa.WGMMA_LAUNCHES
+    total, wgmma, tf32x3 = (fa.LAUNCHES, fa.WGMMA_LAUNCHES,
+                            fa.TF32X3_LAUNCHES)
     fa.flash_attention(q, k, v, causal=True, window=0)
     torch.cuda.synchronize()
     on_wgmma = dtype == torch.bfloat16 and D % 16 == 0
-    assert fa.route(dtype, D) == ("wgmma" if on_wgmma else "float32")
+    assert fa.route(dtype, D) == ("wgmma" if on_wgmma else "tf32x3")
     assert fa.LAUNCHES == total + 1
     assert fa.WGMMA_LAUNCHES == wgmma + on_wgmma
+    assert fa.TF32X3_LAUNCHES == tf32x3 + (not on_wgmma)
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window", [
@@ -580,6 +582,39 @@ def test_flash_wgmma_route_ragged_rows(cuda, B, Sq, Sk, H, Hkv, D, causal,
     torch.testing.assert_close(got.float(), want.float(), **TOL_BF16)
     assert torch.equal(got, fa.flash_attention(q, k, v, causal=causal,
                                                window=window))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,dtype,causal,window", [
+    # D 20 (64-key tiles, the next one loaded during the products): 100
+    # rows (36 in the last tile), a last kv tile of 36 keys
+    (2, 100, 100, 6, 2, 20, torch.float32, True, 0),
+    (3, 33, 70, 3, 1, 20, torch.bfloat16, False, 0),  # bf16, D % 16 != 0
+    # D 200 (32-key tiles): 77 rows, a last kv tile of 22 keys
+    (1, 77, 150, 3, 1, 200, torch.float32, False, 0),
+    # D 256 (16-key tiles, Q's hi and lo 128 KB): 130 rows, a last kv tile
+    # of 6 keys, the window biting; and rows with no valid key
+    (2, 130, 150, 4, 1, 256, torch.float32, True, 64),
+    (2, 72, 45, 4, 2, 256, torch.float32, True, 16),
+])
+def test_flash_tf32x3_route_ragged_rows_and_tiles(cuda, B, Sq, Sk, H, Hkv,
+                                                  D, dtype, causal, window):
+    """The tf32x3 route at each of its tile plans, with query rows past Sq
+    in the last 64-row tile and keys past Sk in the last kv tile: within
+    the float32 tolerance of the plain version, and two launches equal."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _flash_inputs(cuda, B, Sq, Sk, H, Hkv, D, dtype, seed=9)
+    assert fa.route(dtype, D) == "tf32x3"
+    n = fa.TF32X3_LAUNCHES
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    again = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.TF32X3_LAUNCHES == n + 2
+    want = ref.naive_attention(q, k, v, causal=causal, window=window)
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    tol = TOL32 if dtype == torch.float32 else TOL_BF16
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("Sq", [1, 32, 1500])
@@ -1221,7 +1256,7 @@ def _final_loss(text):
 def test_train_cli_recurrentgemma_smoke_on_card(cuda, tmp_path, capsys):
     """``launch.train --arch recurrentgemma_2b --smoke`` on the card: per
     step one rglru launch per RG-LRU layer (9) and one flash launch per
-    local-attention layer (4, float32 route); the pushes fingerprint on
+    local-attention layer (4, tf32x3 route); the pushes fingerprint on
     the card."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru as rg
@@ -1238,7 +1273,7 @@ def test_train_cli_recurrentgemma_smoke_on_card(cuda, tmp_path, capsys):
 
 def test_train_cli_granite_smoke_on_card(cuda, tmp_path, capsys):
     """``launch.train --arch granite_moe_1b_a400m --smoke`` on the card:
-    one flash launch per layer a step (2, float32 route), the MoE
+    one flash launch per layer a step (2, tf32x3 route), the MoE
     gradients through the dispatch and combine gathers under
     deterministic mode; the pushes fingerprint on the card."""
     from repro_torch.kernels import flash_attention as fa
@@ -1256,7 +1291,7 @@ def test_whisper_smoke_loss_and_grads_on_card_match_cpu(cuda):
     """whisper_large_v3's smoke config (2 encoder + 2 decoder layers,
     float32) with stub audio frames: ``lm_loss`` and its gradients, the
     train step's, on the card against the CPU, each flash call (2 encoder,
-    2 self, 2 cross) one launch on the float32 route, and the encoder's,
+    2 self, 2 cross) one launch on the tf32x3 route, and the encoder's,
     cross-attention's and ``dec_pos_embed``'s gradients not zero.
     Tolerances: tests/test_torch_train.py's float32 LOSS_TOL and
     GRAD_TOL (another sum order on each side)."""

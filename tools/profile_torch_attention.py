@@ -7,7 +7,10 @@ by entry.
 For the decode kernel at ``chip_smoke.py``'s timed shapes (``main``,
 ``smollm-serve``, ``rg-serve``, ``rg-ring``) and the flash kernel at its
 timed shapes (``smollm-train``, ``paper-train``, ``rg-prefill``,
-``rg-long-prefill``), with inputs made on the card from seed 0:
+``rg-long-prefill``, and the other float32 ones: ``qs-train``,
+``ex-trainer-train``, ``rg-remat-f32``, ``wh-gate-f32-encoder``) and at
+every other float32 case of its ``FLASH_CASES``, with inputs made on the
+card from seed 0:
 
   * the device time of one wrapper call: a CUDA graph of back-to-back
     calls, replayed between CUDA events;
@@ -41,6 +44,23 @@ FLASH = [  # (label, B, Sq, Sk, H, Hkv, D, dtype, causal, window)
     ("paper-train", 8, 128, 128, 8, 4, 32, "float32", True, 0),
     ("rg-prefill", 8, 32, 32, 10, 1, 256, "bfloat16", True, 2048),
     ("rg-long-prefill", 2, 2304, 2304, 10, 1, 256, "bfloat16", True, 2048),
+    ("qs-train", 8, 64, 64, 3, 1, 20, "float32", True, 0),
+    ("ex-trainer-train", 4, 64, 64, 3, 1, 20, "float32", True, 0),
+    ("rg-remat-f32", 2, 32, 32, 10, 1, 256, "float32", True, 2048),
+    ("wh-gate-f32-encoder", 2, 1500, 1500, 20, 20, 64, "float32", False, 0),
+    # the other float32 cases of chip_smoke.py:FLASH_CASES
+    *[(f"sweep-{B}x{S}x{H}x{Hkv}x{D}-w{w}", B, S, S, H, Hkv, D, "float32",
+       True, w)
+      for B, S, H, Hkv, D in [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64),
+                              (1, 256, 4, 1, 128), (2, 128, 6, 3, 32)]
+      for w in (0, 64)],
+    ("first-tile-masked", 2, 256, 256, 4, 2, 64, "float32", True, 40),
+    ("ragged", 2, 100, 100, 6, 2, 48, "float32", True, 0),
+    ("no-valid-key", 2, 128, 48, 4, 2, 16, "float32", True, 16),
+    ("no-mask", 2, 96, 96, 4, 4, 32, "float32", False, 0),
+    ("d256-f32-window", 2, 100, 100, 10, 1, 256, "float32", True, 40),
+    ("d256-f32-no-valid-key", 2, 72, 40, 4, 2, 256, "float32", True, 16),
+    ("d200-ragged", 1, 77, 77, 3, 1, 200, "float32", True, 0),
 ]
 
 
