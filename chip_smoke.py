@@ -105,9 +105,10 @@ Phases, each fatal on failure (no phase catches its own error):
      qwen2-vl's q and k shapes; from the same draws, float32 gradient
      gates of recurrentgemma_2b (over ``RG_GRAD_SEEDS``) and
      granite_moe_1b_a400m (over ``MOE_SEEDS``, the card taking the CPU's
-     expert picks, each of its own that differs a near-tie): the loss,
-     the grad norm, the worst leaf's gradient and the params after one
-     AdamW step of ``launch.train``'s settings on a [2, 32] batch
+     expert picks, each of its own that differs a near-tie): the loss
+     (over its per-token terms), the grad norm, the worst leaf's
+     gradient and the params after one AdamW step of ``launch.train``'s
+     settings on a [2, 32] batch
      (``GRAD_LIMITS``, TF32 products the control); each limit lies
      between the sound readings
      and a control's (TF32 products, attention without its masks, the
@@ -903,7 +904,8 @@ def drift(got, want) -> float:
 
 
 def flash_kernel(gen):
-    """The flash kernel against its plain version at every case, on the
+    """``fa.flash_f32_plan`` equal to the launch code's plan at every D;
+    the flash kernel against its plain version at every case, on the
     route ``fa.route`` names (its counter moves by the case's two
     launches), two launches bit-equal; times at ``FLASH_TIMED``'s shapes,
     the first of them the table's row; at each float32 timed shape the
@@ -916,6 +918,10 @@ def flash_kernel(gen):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
+    bad = [D for D in range(1, fa.MAX_HEAD_DIM + 1)
+           if fa.launch_f32_plan(D) != fa.flash_f32_plan(D)]
+    check(not bad, f"flash: flash_f32_plan differs from the tf32x3 launch "
+          f"code's plan at D {bad}")
     row = None
     by_shape = {}
     for label, B, Sq, Sk, H, Hkv, D, dtype, causal, window in FLASH_CASES:
@@ -1962,23 +1968,33 @@ RG_LIMITS = {"bfloat16": dict(prefill=2e-2, decode=2e-2),
 # lm_loss on a [2, 32] batch of SyntheticTokenDataset(seed) (whisper's
 # with [2, 1500, 1280] stub frames) and one AdamW step of launch.train's
 # settings (lr 3e-4 at step 0, weight decay 0.01, clip 1.0), card against
-# CPU.  Readings: the loss and the grad norm (relative), the worst leaf's
-# relative L2 gradient error, and the params after the step as the
-# relative L2 error of the step's change (Adam's first step moves each
-# entry by about lr times the sign of its gradient, so a near-zero
-# gradient whose sign flips moves one entry by up to 2 lr: the maximum
-# over a billion entries says nothing, the L2 error weighs how many
-# flip).  The control lets cuBLAS round its float32 inputs to TF32.
-# PERF.md (the training findings of PRs 24-25), on an H100 over each
-# arch's seeds, worst sound / least control: recurrentgemma_2b loss
-# 7.7e-7 / 1.1e-5, grad norm 6.5e-6 /
-# 1.5e-5 (TF32's errors mostly cancel in the norm: its limit has 1.5x
-# room on either side), grads 4.3e-5 / 1.8e-3, params 5.1e-4 / 2.4e-2;
-# granite_moe_1b_a400m loss 0 / 3.3e-6, grad norm 6.8e-8 / 1.6e-5, grads
-# 3.8e-6 / 2.1e-3, params 5.9e-5 / 2.1e-2.  whisper_large_v3 (2 + 2
-# layers, 1500 frames; in frontend_model_phase, PERF.md's whisper training
-# finding) loss 8.3e-8 / 3.5e-6, grad norm 1.0e-7 / 7.0e-6, grads 2.4e-6 /
-# 9.5e-4, params 4.2e-5 / 1.4e-2: each limit near the geometric mean.
+# CPU.  Readings: the loss as the relative L2 error of its per-token
+# terms (lm_loss_terms: a token's cross-entropy plus the router's aux
+# term; their mean is the loss, so the loss's own relative error is at
+# most this reading times the terms' rms over their mean), the
+# grad norm (relative), the worst leaf's relative L2 gradient error, and
+# the params after the step as the relative L2 error of the step's change
+# (Adam's first step moves each entry by about lr times the sign of its
+# gradient, so a near-zero gradient whose sign flips moves one entry by
+# up to 2 lr: the maximum over a billion entries says nothing, the L2
+# error weighs how many flip).  The control lets cuBLAS round its float32
+# inputs to TF32.  TF32's errors cancel in a mean: read on the loss
+# itself, granite's control at seed 0 came to one ulp of the loss
+# (8.7e-8), as its sound run did, once float32 attention's last bits
+# changed (PERF.md, the flash kernel's tf32x3 finding); in the terms they
+# do not cancel.  On an H100 over each arch's seeds, worst sound / least
+# control (the loss from the run of its terms, the rest from PERF.md's
+# training findings): recurrentgemma_2b loss 1.6e-6 / 4.8e-5, grad
+# norm 6.5e-6 / 1.5e-5 (TF32's errors mostly cancel in the norm: its
+# limit has 1.5x room on either side), grads 4.3e-5 / 1.8e-3, params
+# 5.1e-4 / 2.4e-2; granite_moe_1b_a400m loss 1.5e-7 / 5.6e-5, grad norm
+# 6.8e-8 / 1.6e-5, grads 3.8e-6 / 2.1e-3, params 5.9e-5 / 2.1e-2.
+# whisper_large_v3 (2 + 2 layers, 1500 frames; in frontend_model_phase,
+# PERF.md's whisper training finding) loss 1.7e-7 / 2.9e-5, grad norm
+# 1.0e-7 / 7.0e-6, grads 2.4e-6 / 9.5e-4, params 4.2e-5 / 1.4e-2.  Each
+# limit was set near the geometric mean of the readings on the loss
+# itself and is unchanged; the terms' readings lie below it, their
+# controls 15x or more above.
 GRAD_LIMITS = {
     "recurrentgemma_2b": dict(loss=3e-6, grad_norm=1e-5, grads=3e-4,
                               params=3e-3),
@@ -2062,7 +2078,7 @@ def grad_step(cfg, params, seed: int, device: str, remat: str = "none",
     config), then one AdamW step with ``launch.train``'s settings at step
     0, in place on ``params``; ``mem`` (a dict, on the card) receives
     ``forward_and_backward``'s readings.  -> (loss, gradients in leaf
-    order, grad norm)."""
+    order, grad norm, the loss's per-token terms)."""
     import dataclasses
 
     import numpy as np
@@ -2081,7 +2097,8 @@ def grad_step(cfg, params, seed: int, device: str, remat: str = "none",
         batch["frames"] = np.random.default_rng(seed).normal(
             0, 0.02, (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     batch = {k: to_tensor(a, device) for k, a in batch.items()}
-    loss, grads = forward_and_backward(cfg, params, batch, remat, mem)
+    loss, grads, terms = forward_and_backward(cfg, params, batch, remat,
+                                              mem)
     opt_cfg = adamw.AdamWConfig(weight_decay=0.01)
     lr = cosine_schedule(torch.tensor(0, dtype=torch.int32, device=device),
                          peak=3e-3, warmup_steps=10, total_steps=3)
@@ -2089,17 +2106,38 @@ def grad_step(cfg, params, seed: int, device: str, remat: str = "none",
     _, _, met = adamw.adamw_update(params, unflatten(treedef, list(grads)),
                                    adamw.adamw_init(params, opt_cfg),
                                    opt_cfg, lr=lr)
-    return float(loss.detach()), grads, float(met["grad_norm"])
+    return float(loss.detach()), grads, float(met["grad_norm"]), terms
+
+
+def lm_loss_terms(params, batch, cfg, remat: str):
+    """``transformer.lm_loss`` (the same operations in the same order, so
+    the same bits) and its per-token terms: -> (loss, the terms detached),
+    each term a kept token's cross-entropy plus the router's aux term, so
+    that their mean is the loss."""
+    from repro_torch.models import transformer as T
+
+    logits, aux = T.lm_forward(params, batch, cfg, remat=remat)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    labels = torch.clamp(labels, min=0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    del logits
+    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    denom = torch.clamp(mask.sum(), min=1.0)
+    xent = -(ll * mask).sum() / denom
+    loss = xent + cfg.router_aux_coef * aux
+    terms = (cfg.router_aux_coef * aux - ll)[mask > 0]
+    return loss, terms.detach()
 
 
 def forward_and_backward(cfg, params, batch, remat: str, mem=None):
     """``lm_loss`` under ``remat`` and its gradients for every leaf of
-    ``params`` -> (loss, gradients in leaf order).  ``mem`` (a dict, on
-    the card) receives, after a garbage collection, what the forward
-    leaves allocated for the backward (``saved``: the activations, bytes
-    above what was allocated before) and the forward and backward's peak
-    allocation above it (``peak``: the gradients included)."""
-    from repro_torch.models import transformer as T
+    ``params`` -> (loss, gradients in leaf order, the loss's per-token
+    terms: ``lm_loss_terms``).  ``mem`` (a dict, on the card) receives,
+    after a garbage collection, what the forward leaves allocated for the
+    backward (``saved``: the activations, bytes above what was allocated
+    before) and the forward and backward's peak allocation above it
+    (``peak``: the gradients included)."""
     from repro_torch.tree import flatten, unflatten
 
     flat, treedef = flatten(params)
@@ -2110,28 +2148,28 @@ def forward_and_backward(cfg, params, batch, remat: str, mem=None):
         before = torch.cuda.memory_allocated()
     with torch.enable_grad():
         inputs = [p.detach().requires_grad_() for p in flat]
-        loss, _ = T.lm_loss(unflatten(treedef, inputs), batch, cfg,
-                            remat=remat)
+        loss, terms = lm_loss_terms(unflatten(treedef, inputs), batch, cfg,
+                                    remat)
         if mem is not None:
             mem["saved"] = torch.cuda.memory_allocated() - before
         grads = torch.autograd.grad(loss, inputs)
     if mem is not None:
         torch.cuda.synchronize()
         mem["peak"] = torch.cuda.max_memory_allocated() - before
-    return loss, grads
+    return loss, grads, terms
 
 
 def host_grad_step(cfg, seed: int):
     """``grad_step`` on the CPU from a fresh ``init_lm(seed)`` draw ->
-    (loss, gradients, grad norm, the params after the step in leaf order,
-    seconds)."""
+    (loss, gradients, grad norm, the loss's per-token terms, the params
+    after the step in leaf order, seconds)."""
     from repro_torch.models import transformer as T
     from repro_torch.tree import leaves
 
     t0 = time.perf_counter()
     params = T.init_lm(cfg, seed=seed, device="cpu")
-    loss, grads, norm = grad_step(cfg, params, seed, "cpu")
-    return loss, grads, norm, leaves(params), time.perf_counter() - t0
+    loss, grads, norm, terms = grad_step(cfg, params, seed, "cpu")
+    return loss, grads, norm, terms, leaves(params), time.perf_counter() - t0
 
 
 class HostRuns:
@@ -2220,11 +2258,12 @@ def grad_gate(arch, cfg, params, on_card, seed: int, launches: dict,
     if host is None:
         t0 = time.perf_counter()
         with follow.host() if follow else contextlib.nullcontext():
-            h_loss, h_grads, h_norm = grad_step(cfg, params, seed, "cpu")
+            h_loss, h_grads, h_norm, h_terms = grad_step(cfg, params, seed,
+                                                         "cpu")
         t_host = time.perf_counter() - t0
         h_params = leaves(params)
     else:
-        h_loss, h_grads, h_norm, h_params, t_host = host
+        h_loss, h_grads, h_norm, h_terms, h_params, t_host = host
     # the CPU step's change, against the card's untouched copy of the init
     step_sq = sum(float((h.to("cuda") - c).double().square().sum())
                   for h, c in zip(h_params, leaves(on_card)))
@@ -2241,8 +2280,8 @@ def grad_gate(arch, cfg, params, on_card, seed: int, launches: dict,
             t0 = time.perf_counter()
             with (follow.card(strict=not control) if follow
                   else contextlib.nullcontext()):
-                loss, grads, norm = grad_step(cfg, card, seed, "cuda",
-                                              mem=mem)
+                loss, grads, norm, terms = grad_step(cfg, card, seed,
+                                                     "cuda", mem=mem)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
@@ -2267,7 +2306,9 @@ def grad_gate(arch, cfg, params, on_card, seed: int, launches: dict,
             rel.append(d / ref if ref else (0.0 if d == 0 else math.inf))
         diff_sq = sum(float((c - h.to("cuda")).double().square().sum())
                       for c, h in zip(leaves(card), h_params))
-        out.append({"loss": abs(loss - h_loss) / abs(h_loss),
+        h_t = h_terms.to("cuda").double()
+        out.append({"loss": float((terms.double() - h_t).norm())
+                    / float(h_t.norm()),
                     "grad_norm": abs(norm - h_norm) / abs(h_norm),
                     "grads": max(rel),
                     "params": math.sqrt(diff_sq / step_sq)})
@@ -3250,7 +3291,7 @@ def remat_phase(paths, rg) -> None:
         def run():
             return grad_step(cfg, card, seed, "cuda", remat=remat, mem=mem)
 
-        launches, (loss, grads, norm), wall = run_path(
+        launches, (loss, grads, norm, _), wall = run_path(
             f"remat-rg-{remat}", run, ("rglru", "flash_attention"), "tf32x3",
             tag="remat")
         paths[f"remat-rg-{remat}"] = launches
@@ -4352,8 +4393,8 @@ def frontend_host(arch: str, seed: int) -> dict:
                       time.perf_counter() - t0)
     if arch in GRAD_LIMITS:
         t0 = time.perf_counter()
-        loss, grads, norm = grad_step(cfg, params, seed, "cpu")
-        out["grad"] = (loss, grads, norm, leaves(params),
+        loss, grads, norm, terms = grad_step(cfg, params, seed, "cpu")
+        out["grad"] = (loss, grads, norm, terms, leaves(params),
                        time.perf_counter() - t0)
     return out
 

@@ -1042,3 +1042,19 @@ extern "C" int flash_attention_tf32x3_launch(int dtype, const void* q,
         q, k, v, out, B, Sq, Sk, H, Hkv, D, causal, window, scale, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// The tf32x3 route's plan for head dim D, as its launch takes it: out[0..4]
+// = cols, warpgroups, keys a kv tile, the prefetch (0 or 1) and the
+// dynamic shared memory of a CTA in bytes (flash_attention.py:
+// flash_f32_plan is held to it).  Returns cudaErrorInvalidValue for a D
+// the route does not take, else 0.
+extern "C" int flash_attention_tf32x3_plan(int D, int* out) {
+  if (D < 1 || D > kMaxHeadDim) return static_cast<int>(cudaErrorInvalidValue);
+  const int cols = 32 * ((D + 31) / 32);
+  out[0] = cols;
+  out[1] = tf_groups(cols);
+  out[2] = tf_keys(cols);
+  out[3] = tf_prefetch(cols) ? 1 : 0;
+  out[4] = tf_smem_bytes(cols);
+  return 0;
+}

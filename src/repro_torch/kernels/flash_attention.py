@@ -57,7 +57,9 @@ SMEM_PER_BLOCK = 232448  # bytes of shared memory a block may take (H100)
 
 class F32Plan(NamedTuple):
     """The tf32x3 route's tiles (csrc/flash_attention.cu: tf_groups,
-    tf_keys, tf_prefetch, tf_smem_bytes)."""
+    tf_keys, tf_prefetch, tf_smem_bytes; ``launch_f32_plan`` reads them
+    from the built library, and the card's checks hold the two equal at
+    every D)."""
     cols: int        # D padded to 32-column boxes: the products' depth
     groups: int      # warpgroups a CTA, taking kv tiles in turn
     keys: int        # keys per kv tile (the N of S = Q.K^T)
@@ -80,6 +82,18 @@ def flash_f32_plan(D: int) -> F32Plan:
     smem = 1024 + 2 * 4 * (64 * cols
                            + groups * (keys * cols + cols * max(keys, 32)))
     return F32Plan(cols, groups, keys, cols <= 128, smem)
+
+
+def launch_f32_plan(D: int) -> F32Plan:
+    """The plan the tf32x3 launch code takes for head dim ``D`` (its
+    constexprs, read from the built library: needs the card's build), to
+    hold ``flash_f32_plan`` to."""
+    out = (ctypes.c_int * 5)()
+    build.check("flash_attention_tf32x3_plan", build.entry(
+        "flash_attention_tf32x3_plan", [ctypes.c_int, ctypes.c_void_p])(
+            D, ctypes.addressof(out)))
+    cols, groups, keys, prefetch, smem = out
+    return F32Plan(cols, groups, keys, bool(prefetch), smem)
 
 
 def _launcher(name: str):

@@ -9,7 +9,8 @@ of both routes' arithmetic held against ``ref.naive_attention``: the
 ``wgmma`` route's (bf16 products summed in float32, the scale applied
 after the product, softmax weights fed to the P.V product as bf16 hi +
 lo) and the tf32x3 route's (every operand as tf32 hi + lo, three products
-each, P.V summed in the kernel's key order).
+each into truncating float32 accumulators started fresh for each 32-column
+box of S and each tile's P.V, P.V summed in the kernel's key order).
 """
 import numpy as np
 import pytest
@@ -258,58 +259,131 @@ def slot_order(n: int) -> list:
     return sorted(range(n), key=slot.__getitem__)
 
 
+def truncating_product(a, b, acc=None):
+    """acc + a [..., M, K] @ b [..., N, K]^T as a tensor core's float32
+    accumulator is modelled here: the exact sum of each k-step's 8 products
+    added to the accumulator, and the result truncated toward zero to
+    float32."""
+    shape = a.shape[:-1] + b.shape[-2:-1]
+    acc = (torch.zeros(shape) if acc is None else acc).double()
+    for k0 in range(0, a.shape[-1], 8):
+        x = acc + (a[..., k0:k0 + 8].double()
+                   @ b[..., k0:k0 + 8].double().transpose(-1, -2))
+        y = x.float().double()
+        acc = torch.where(y.abs() > x.abs(),
+                          torch.nextafter(y.float(), torch.zeros(())).double(),
+                          y)
+    return acc.float()
+
+
 def tf32x3_model(q, k, v, *, causal: bool, window: int, split):
-    """The tf32x3 route's arithmetic in plain torch, float32: q scaled in
-    float32, every operand split by ``split`` into (hi, lo) and each
-    product lo.hi + hi.lo + hi.hi in that order; kv tiles of
-    ``flash_f32_plan(D).keys`` keys taken in turn by the plan's
-    warpgroups, each walking its own online softmax (masked scores
-    NEG_INF, keys past Sk out; each tile's P.V over its keys in slot
-    order, then added to the rescaled o), merged at the end; the output
-    acc / max(l, 1e-37)."""
+    """The tf32x3 route's arithmetic in plain torch, float32, CTA by CTA
+    (64 query rows): q scaled in float32, D padded with zeros to the plan's
+    32-column boxes, every operand split by ``split`` into (hi, lo); the kv
+    tiles the kernel walks (``flash_f32_plan(D).keys`` keys, wholly masked
+    ones skipped) taken in turn by the plan's warpgroups from the first
+    walked one, each with its own online softmax (masked scores NEG_INF,
+    keys past Sk out).  S: each 32-column box as lo.hi + hi.lo + hi.hi in
+    one fresh truncating accumulator (``truncating_product``), the boxes
+    added in float32; P.V: each 32-column piece of D as lo.hi + hi.lo +
+    hi.hi over the tile's keys in slot order, in one fresh truncating
+    accumulator, then o = fma(o, corr, it); the warpgroups merged at the
+    end; the output acc / max(l, 1e-37)."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
     plan = fa.flash_f32_plan(D)
-    qg = (q.float() * ref.attn_scale(D)).reshape(B, Sq, Hkv, g, D)
-    kf, vf = k.float(), v.float()
-    qp = torch.arange(Sq)[:, None]
+    keys, cols = plan.keys, plan.cols
+
+    def pad(x):
+        return torch.nn.functional.pad(x.float(), (0, cols - D))
+
+    qs = pad(q.float() * ref.attn_scale(D)).reshape(B, Sq, Hkv, g, cols)
+    qs = qs.permute(0, 2, 3, 1, 4)  # [B, Hkv, g, Sq, cols]
+    kf = pad(k).permute(0, 2, 1, 3)[:, :, None]  # [B, Hkv, 1, Sk, cols]
+    vf = pad(v).permute(0, 2, 1, 3)[:, :, None]
+    (q_hi, q_lo), (k_hi, k_lo), (v_hi, v_lo) = split(qs), split(kf), split(vf)
     kp = torch.arange(Sk)[None, :]
+    out = torch.zeros((B, Hkv, g, Sq, D))
+    for q0 in range(0, Sq, 64):
+        rows = slice(q0, min(q0 + 64, Sq))
+        q_last = rows.stop - 1
+        qp = torch.arange(q0, rows.stop)[:, None]
+        keep = torch.ones((rows.stop - q0, Sk), dtype=torch.bool)
+        if causal:
+            keep &= qp >= kp
+        if window:
+            keep &= qp - kp < window
+        nk = -(-Sk // keys)
+        t_lo, t_hi = 0, nk
+        if not (window > 0 and q_last - (Sk - 1) >= window):
+            if causal:
+                t_hi = min(nk, q_last // keys + 1)
+            if window > 0:
+                t_lo = max(0, q0 - window + 1) // keys
+        shape = (B, Hkv, g, rows.stop - q0)
+        state = [[torch.full(shape, ref.NEG_INF), torch.zeros(shape),
+                  torch.zeros(shape + (cols,))] for _ in range(plan.groups)]
+        for t in range(t_lo, t_hi):
+            m, l, o = state[(t - t_lo) % plan.groups]
+            ks = slice(t * keys, min((t + 1) * keys, Sk))
+            s = None
+            for c0 in range(0, cols, 32):
+                c = slice(c0, c0 + 32)
+                box = None
+                for a, b in ((q_lo, k_hi), (q_hi, k_lo), (q_hi, k_hi)):
+                    box = truncating_product(a[..., rows, c], b[..., ks, c],
+                                             box)
+                s = box if s is None else s + box
+            s = torch.where(keep[:, ks], s, ref.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            order = [ks.start + j for j in slot_order(ks.stop - ks.start)]
+            p_hi, p_lo = split(p[..., [j - ks.start for j in order]])
+            vt_hi = v_hi[..., order, :].transpose(-1, -2)
+            vt_lo = v_lo[..., order, :].transpose(-1, -2)
+            o = o.clone()
+            for c0 in range(0, cols, 32):
+                c = slice(c0, c0 + 32)
+                pv = None
+                for a, b in ((p_lo, vt_hi), (p_hi, vt_lo), (p_hi, vt_hi)):
+                    pv = truncating_product(a, b[..., c, :], pv)
+                o[..., c] = (o[..., c].double() * corr[..., None].double()
+                             + pv.double()).float()  # one rounding: fmaf
+            state[(t - t_lo) % plan.groups] = [m_new, l, o]
+        m, l, o = state[0]
+        for m1, l1, o1 in state[1:]:  # the merge: both to the larger m
+            mm = torch.maximum(m, m1)
+            f0, f1 = torch.exp(m - mm), torch.exp(m1 - mm)
+            l = l * f0 + l1 * f1
+            o = o * f0[..., None] + o1 * f1[..., None]
+        out[..., rows, :] = o[..., :D] / l.clamp_min(1e-37)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+
+
+def attention64(q, k, v, *, causal: bool, window: int):
+    """The plain version in float64, from the same float32 inputs."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qg = (q.double() * ref.attn_scale(D)).reshape(B, Sq, Hkv, H // Hkv, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double())
+    qp, kp = torch.arange(Sq)[:, None], torch.arange(Sk)[None, :]
     keep = torch.ones((Sq, Sk), dtype=torch.bool)
     if causal:
         keep &= qp >= kp
     if window:
         keep &= qp - kp < window
+    p = torch.softmax(torch.where(keep, s, ref.NEG_INF), dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p, v.double()).reshape(
+        B, Sq, H, D)
 
-    def product(eq, a, b):
-        (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
-        return ((torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo))
-                + torch.einsum(eq, a_hi, b_hi))
 
-    # one (m, l, o) per warpgroup, over the tiles it takes in turn
-    state = [[torch.full((B, Hkv, g, Sq), ref.NEG_INF),
-              torch.zeros((B, Hkv, g, Sq)), torch.zeros((B, Hkv, g, Sq, D))]
-             for _ in range(plan.groups)]
-    for t, k0 in enumerate(range(0, Sk, plan.keys)):
-        m, l, o = state[t % plan.groups]
-        ks = slice(k0, min(k0 + plan.keys, Sk))
-        s = product("bqhgd,bkhd->bhgqk", qg, kf[:, ks])
-        s = torch.where(keep[:, ks], s, ref.NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1))
-        corr = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        order = slot_order(ks.stop - k0)
-        pv = product("bhgqk,bkhd->bhgqd", p[..., order], vf[:, ks][:, order])
-        state[t % plan.groups] = [m_new, l * corr + p.sum(-1),
-                                  o * corr[..., None] + pv]
-    m, l, o = state[0]
-    for m1, l1, o1 in state[1:]:  # the merge: both to the larger m
-        mm = torch.maximum(m, m1)
-        f0, f1 = torch.exp(m - mm), torch.exp(m1 - mm)
-        l = l * f0 + l1 * f1
-        o = o * f0[..., None] + o1 * f1[..., None]
-    o = o / l.clamp_min(1e-37)[..., None]
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+def drift(got, want):
+    """sum((got - want) * want) / sum(want * want): a bias along want."""
+    got, want = got.double(), want.double()
+    return float(((got - want) * want).sum() / (want * want).sum())
 
 
 # float32 cases of chip_smoke.py:FLASH_CASES, cut to few rows and heads,
@@ -325,16 +399,20 @@ TF32X3_CASES = [
     ("wh-gate-f32-encoder", 1, 64, 1500, 1, 1, 64, False, 0),
 ]
 FLASH_TOL = dict(rtol=1e-5, atol=1e-5)  # chip_smoke.py:FLASH_TOL
+FLASH_DRIFT = 1e-6  # chip_smoke.py:FLASH_DRIFT
 
 
 @pytest.mark.parametrize("label,B,Sq,Sk,H,Hkv,D,causal,window", TF32X3_CASES)
 def test_tf32x3_arithmetic_model_keeps_float32_accuracy(label, B, Sq, Sk, H,
                                                         Hkv, D, causal,
                                                         window):
-    """The split model lies within the kernel check's float32 tolerance of
-    the plain version, at least 100x closer than one TF32 product (so the
+    """The model of the kernel's arithmetic (truncating accumulators
+    included) lies within the kernel check's float32 tolerance of the
+    plain version, at least 100x closer than one TF32 product (so the
     check can tell TF32 from a sound kernel) and at least 5x closer than a
-    3 x bf16 split (which misses the tolerance)."""
+    3 x bf16 split; its drift along the
+    output against a float64 version is within the kernel check's
+    FLASH_DRIFT."""
     rng = np.random.default_rng(D * 1000 + Sq + window)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                for shape in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
@@ -348,6 +426,9 @@ def test_tf32x3_arithmetic_model_keeps_float32_accuracy(label, B, Sq, Sk, H,
         errs[name] = (got - want).abs().max().item()
         if name == "tf32x3":
             torch.testing.assert_close(got, want, **FLASH_TOL)
+            bias = drift(got, attention64(q, k, v, causal=causal,
+                                          window=window))
+            assert abs(bias) <= FLASH_DRIFT, bias
     assert 100 * errs["tf32x3"] < errs["tf32"], errs
     assert 5 * errs["tf32x3"] < errs["bf16x3"], errs
 
@@ -363,21 +444,6 @@ def test_tf32_rounds_to_nearest_ties_away():
     hi = tf32(x)
     assert torch.equal((x - hi) + hi, x)
     assert torch.equal(tf32(hi), hi)
-
-
-def truncating_product(a, b, acc=None):
-    """acc + a [M, K] @ b [N, K]^T as a tensor core's float32 accumulator
-    is modelled here: the exact sum of each k-step's 8 products added to
-    the accumulator, and the result truncated toward zero to float32."""
-    acc = (torch.zeros((a.shape[0], b.shape[0])) if acc is None
-           else acc).double()
-    for k0 in range(0, a.shape[1], 8):
-        x = acc + a[:, k0:k0 + 8].double() @ b[:, k0:k0 + 8].double().T
-        y = x.float().double()
-        acc = torch.where(y.abs() > x.abs(),
-                          torch.nextafter(y.float(), torch.zeros(())).double(),
-                          y)
-    return acc.float()
 
 
 def test_tf32x3_pv_sum_starts_fresh_each_tile():

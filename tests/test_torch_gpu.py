@@ -585,11 +585,14 @@ def test_flash_wgmma_route_ragged_rows(cuda, B, Sq, Sk, H, Hkv, D, causal,
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,dtype,causal,window", [
-    # D 20 (64-key tiles, the next one loaded during the products): 100
-    # rows (36 in the last tile), a last kv tile of 36 keys
+    # D 20 (flash_f32_plan: 32-key tiles taken in turn by two warpgroups,
+    # the next one loaded during the products): 100 rows (36 in the last
+    # 64-row tile), 100 keys in four tiles, the last of 4 keys
     (2, 100, 100, 6, 2, 20, torch.float32, True, 0),
-    (3, 33, 70, 3, 1, 20, torch.bfloat16, False, 0),  # bf16, D % 16 != 0
-    # D 200 (32-key tiles): 77 rows, a last kv tile of 22 keys
+    # bf16 with D % 16 != 0: a last kv tile of 6 keys
+    (3, 33, 70, 3, 1, 20, torch.bfloat16, False, 0),
+    # D 200 (32-key tiles, one warpgroup): 77 rows, a last kv tile of 22
+    # keys
     (1, 77, 150, 3, 1, 200, torch.float32, False, 0),
     # D 256 (16-key tiles, Q's hi and lo 128 KB): 130 rows, a last kv tile
     # of 6 keys, the window biting; and rows with no valid key
@@ -615,6 +618,15 @@ def test_flash_tf32x3_route_ragged_rows_and_tiles(cuda, B, Sq, Sk, H, Hkv,
     tol = TOL32 if dtype == torch.float32 else TOL_BF16
     torch.testing.assert_close(got.float(), want.float(), **tol)
     assert torch.equal(got, again)
+
+
+def test_flash_f32_plan_is_the_launch_codes(cuda):
+    """``flash_f32_plan``, the tile plan the CPU tests check, equals the
+    one the built launch code takes (its constexprs) at every head dim."""
+    from repro_torch.kernels import flash_attention as fa
+
+    for D in range(1, fa.MAX_HEAD_DIM + 1):
+        assert fa.launch_f32_plan(D) == fa.flash_f32_plan(D), D
 
 
 @pytest.mark.parametrize("Sq", [1, 32, 1500])

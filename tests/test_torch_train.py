@@ -394,3 +394,38 @@ def test_microbatches_match_reference_and_one_batch():
     _, _, one, _ = _run_steps("smollm_360m", 2, microbatches=1)
     for a, b in zip(leaves(tparams), leaves(one)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), **STEP_TOL)
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch", ["paper_consumer", "granite_moe_1b_a400m"])
+def test_gate_loss_terms_are_lm_loss(arch):
+    """chip_smoke.py's float32 gradient gates read the loss through its
+    per-token terms (``forward_and_backward``): the loss and every
+    gradient bit-equal to ``transformer.lm_loss``'s, one term a kept
+    token (the masked ones out), the terms' mean the loss, and that loss
+    the reference's (granite's router aux term included)."""
+    cs = _chip_smoke()
+    jcfg, jparams, tcfg, tparams = _models(arch)
+    batch = _batch(tcfg)
+    loss, grads, terms = cs.forward_and_backward(
+        tcfg, tparams, _torch_batch(batch), "none")
+    want, _, want_grads = _loss_and_grads(tparams, _torch_batch(batch), tcfg)
+    assert torch.equal(loss, want)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))
+    assert terms.shape == (int((batch["labels"] >= 0).sum()),)
+    assert not terms.requires_grad
+    loss = float(loss.detach())
+    np.testing.assert_allclose(float(terms.double().mean()), loss, rtol=1e-6)
+    jloss, _ = JT.lm_loss(jparams, jax.tree.map(jnp.asarray, batch), jcfg)
+    np.testing.assert_allclose(loss, float(jloss), rtol=1e-5)
