@@ -57,6 +57,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import trace as _trace
 from repro_torch import tree as _tree
 from repro_torch.checkpoint import codecs as _codecs
 from repro_torch.checkpoint import fingerprint as _fingerprint
@@ -230,12 +231,19 @@ class Registry:
                                          _resolve_dtype(dtype),
                                          self.chunk_bytes)
 
-    def _push(self, trees: Dict[str, Any], meta: Optional[dict],
-              tag: Optional[str], parent: Optional[str], *,
-              compression: CompressionSpec = "none",
-              lossy_ok: bool = False,
-              fingerprints: bool = True,
-              leaf_fps: Optional[Dict[str, list]] = None) -> PushReport:
+    def _push(self, trees: Dict[str, Any], *args, **kwargs) -> PushReport:
+        with _trace.span("repro_torch.registry.push") as sp:
+            rep = self._push_trees(trees, *args, **kwargs)
+            sp.add(rep.total_bytes)
+        return rep
+
+    def _push_trees(self, trees: Dict[str, Any], meta: Optional[dict],
+                    tag: Optional[str], parent: Optional[str], *,
+                    compression: CompressionSpec = "none",
+                    lossy_ok: bool = False,
+                    fingerprints: bool = True,
+                    leaf_fps: Optional[Dict[str, list]] = None
+                    ) -> PushReport:
         _codecs.validate_compression(compression)
         parent_manifest = self._manifest(parent) if parent else None
         parent_keys = (set(self.image_chunks(parent))
@@ -259,20 +267,22 @@ class Registry:
                 codec_name = _codecs.resolve_compression(
                     compression, name, _resolve_dtype(dtype),
                     pleaf is not None, lossy_ok, chunk_bytes=cb)
-                fenc = (self._fused_leaf(leaf, codec_name, dtype, nbytes,
-                                         parent, name, i, n,
-                                         parent_raw_memo)
-                        if fingerprints else None)
-                if fenc is not None:
-                    fps = fenc.fps
-                elif not fingerprints:
-                    fps = None
-                elif leaf_fps is not None:
-                    fps = leaf_fps[name][i]
-                else:
-                    fps = leaf_fingerprints(leaf, cb)
-                if fps is not None:
-                    fp_bytes += nbytes
+                with _trace.span("repro_torch.registry.fingerprint") as sp:
+                    fenc = (self._fused_leaf(leaf, codec_name, dtype,
+                                             nbytes, parent, name, i, n,
+                                             parent_raw_memo)
+                            if fingerprints else None)
+                    if fenc is not None:
+                        fps = fenc.fps
+                    elif not fingerprints:
+                        fps = None
+                    elif leaf_fps is not None:
+                        fps = leaf_fps[name][i]
+                    else:
+                        fps = leaf_fingerprints(leaf, cb)
+                    if fps is not None:
+                        fp_bytes += nbytes
+                        sp.add(nbytes)
                 fp_list = (None if fps is None
                            else [[int(w) for w in row] for row in fps])
                 pfps = pleaf.get("fps") if pleaf is not None else None
@@ -296,59 +306,69 @@ class Registry:
                     # in fused mode the leaf was already read (and
                     # encoded) on its device; serialization happens lazily
                     # only for incompressible raw-fallback chunks
-                    data = (b"" if fenc is not None or not nbytes
-                            else _codecs.leaf_view(leaf)
-                            if codec_name == "none"
-                            else _codecs.leaf_raw(leaf))
+                    data = b""
+                    if fenc is None and nbytes:
+                        with _trace.span("repro_torch.registry.d2h", nbytes):
+                            data = (_codecs.leaf_view(leaf)
+                                    if codec_name == "none"
+                                    else _codecs.leaf_raw(leaf))
                     codec = _codecs.get_codec(codec_name)
-                    keys = (_chunk_keys(data, cb, [c for c in range(n)
-                                                   if not clean[c]])
-                            if codec_name == "none" else {})
-                    for c in range(n):
-                        seg_len = min(cb, nbytes - c * cb)
-                        if clean[c]:
-                            fp_clean += 1
-                            chunks.append(dict(pleaf["chunks"][c]))
-                            continue
-                        entry = {"raw": seg_len}
-                        if codec_name == "none":
-                            blob = data[c * cb: (c + 1) * cb]
-                        else:
-                            if fenc is not None:
-                                blob = fenc.blob(c)
+                    keys = {}
+                    if codec_name == "none":
+                        dirty = [c for c in range(n) if not clean[c]]
+                        with _trace.span("repro_torch.registry.hash",
+                                         sum(min(cb, nbytes - c * cb)
+                                             for c in dirty)):
+                            keys = _chunk_keys(data, cb, dirty)
+                    with _trace.span("repro_torch.registry.put") as put:
+                        for c in range(n):
+                            seg_len = min(cb, nbytes - c * cb)
+                            if clean[c]:
+                                fp_clean += 1
+                                chunks.append(dict(pleaf["chunks"][c]))
+                                continue
+                            entry = {"raw": seg_len}
+                            if codec_name == "none":
+                                blob = data[c * cb: (c + 1) * cb]
                             else:
-                                parent_raw = self._chunk_raw(
-                                    parent, name, i, c,
-                                    memo=parent_raw_memo)
-                                blob = codec.encode(
-                                    data[c * cb: (c + 1) * cb],
-                                    parent_raw, _resolve_dtype(dtype))
-                            enc_raw += seg_len
-                            if len(blob) >= seg_len:
-                                # incompressible: store raw
-                                blob = (fenc.raw_seg(c) if fenc is not None
-                                        else data[c * cb: (c + 1) * cb])
-                            else:
-                                entry["enc"] = codec_name
-                                entry["pim"] = parent
-                                if not codec.lossless:
-                                    lossy = True
-                                    # the image decodes to the *lossy*
-                                    # reconstruction: the pushed leaf's
-                                    # fingerprint would misrepresent it
-                                    if fp_list is not None:
-                                        fp_list[c] = None
-                        key, new = self.store.put(blob, keys.get(c))
-                        entry["key"] = key
-                        entry["wire"] = len(blob)
-                        if new:
-                            written += len(blob)
-                            written_raw += seg_len
-                        if key not in parent_keys:
-                            delta += seg_len
-                            wire += len(blob)
-                            parent_keys.add(key)  # count shared chunks once
-                        chunks.append(entry)
+                                if fenc is not None:
+                                    blob = fenc.blob(c)
+                                else:
+                                    parent_raw = self._chunk_raw(
+                                        parent, name, i, c,
+                                        memo=parent_raw_memo)
+                                    blob = codec.encode(
+                                        data[c * cb: (c + 1) * cb],
+                                        parent_raw, _resolve_dtype(dtype))
+                                enc_raw += seg_len
+                                if len(blob) >= seg_len:
+                                    # incompressible: store raw
+                                    blob = (fenc.raw_seg(c)
+                                            if fenc is not None
+                                            else data[c * cb: (c + 1) * cb])
+                                else:
+                                    entry["enc"] = codec_name
+                                    entry["pim"] = parent
+                                    if not codec.lossless:
+                                        lossy = True
+                                        # the image decodes to the *lossy*
+                                        # reconstruction: the pushed leaf's
+                                        # fingerprint would misrepresent it
+                                        if fp_list is not None:
+                                            fp_list[c] = None
+                            key, new = self.store.put(blob, keys.get(c))
+                            put.add(len(blob))
+                            entry["key"] = key
+                            entry["wire"] = len(blob)
+                            if new:
+                                written += len(blob)
+                                written_raw += seg_len
+                            if key not in parent_keys:
+                                delta += seg_len
+                                wire += len(blob)
+                                # count shared chunks once
+                                parent_keys.add(key)
+                            chunks.append(entry)
                 leaf_entries.append({"dtype": dtype, "shape": list(shape),
                                      "nbytes": nbytes, "chunks": chunks,
                                      "fps": fp_list})
@@ -480,15 +500,23 @@ class Registry:
                 pulled += wire
                 seen.add(key)
 
-        for name, spec in manifest["trees"].items():
-            leaves = []
-            for li, entry in enumerate(spec["leaves"]):
-                data = b"".join(
-                    self._chunk_raw(image_id, name, li, ci, charge, memo)
-                    for ci in range(len(entry["chunks"])))
-                arr = np.frombuffer(data, dtype=_resolve_dtype(entry["dtype"]))
-                leaves.append(arr.reshape(entry["shape"]).copy())
-            trees[name] = _tree.unflatten(spec["treedef"], leaves)
+        with _trace.span("repro_torch.registry.pull") as sp:
+            for name, spec in manifest["trees"].items():
+                leaves = []
+                for li, entry in enumerate(spec["leaves"]):
+                    nbytes = entry["nbytes"]
+                    with _trace.span("repro_torch.registry.get", nbytes):
+                        parts = [self._chunk_raw(image_id, name, li, ci,
+                                                 charge, memo)
+                                 for ci in range(len(entry["chunks"]))]
+                    with _trace.span("repro_torch.registry.assemble", nbytes):
+                        data = b"".join(parts)
+                        del parts
+                        arr = np.frombuffer(
+                            data, dtype=_resolve_dtype(entry["dtype"]))
+                        leaves.append(arr.reshape(entry["shape"]).copy())
+                    sp.add(nbytes)
+                trees[name] = _tree.unflatten(spec["treedef"], leaves)
         return trees, pulled
 
     def image_chunks(self, image_id: str) -> Dict[str, int]:

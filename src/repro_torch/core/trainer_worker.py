@@ -20,7 +20,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, trace
 from repro_torch.convert import to_tensor
 from repro_torch.data import DataConfig, SyntheticTokenDataset
 from repro_torch.models import transformer as T
@@ -51,21 +51,29 @@ class TrainerWorker:
         self._fn = steplib.build_train_step(cfg, tcfg)
 
     def process(self, msg) -> None:
-        batch_id = int(msg.payload.get("batch_id", msg.payload.get("token")))
-        batch = {k: to_tensor(a, self.device)
-                 for k, a in self.ds.batch(batch_id).items()}
-        self.params, self.opt_state, metrics = self._fn(
-            self.params, self.opt_state, batch,
-            torch.tensor(self.step, dtype=torch.int32))
-        self.step += 1
-        self.last_loss = float(metrics["loss"])
-        self.last_msg_id = msg.msg_id
-        self.n_processed += 1
+        with trace.span("repro_torch.trainer.step"):
+            batch_id = int(msg.payload.get("batch_id",
+                                           msg.payload.get("token")))
+            with trace.span("repro_torch.trainer.dispatch"):
+                batch = {k: to_tensor(a, self.device)
+                         for k, a in self.ds.batch(batch_id).items()}
+                self.params, self.opt_state, metrics = self._fn(
+                    self.params, self.opt_state, batch,
+                    torch.tensor(self.step, dtype=torch.int32))
+            self.step += 1
+            with trace.span("repro_torch.trainer.sync"):
+                self.last_loss = float(metrics["loss"])
+            self.last_msg_id = msg.msg_id
+            self.n_processed += 1
 
     def state_tree(self) -> Dict[str, Any]:
+        with trace.span("repro_torch.trainer.state_tree",
+                        trace.tree_bytes((self.params, self.opt_state))):
+            params = tree_map(torch.clone, self.params)
+            opt = tree_map(torch.clone, self.opt_state)
         return {
-            "params": tree_map(torch.clone, self.params),
-            "opt": tree_map(torch.clone, self.opt_state),
+            "params": params,
+            "opt": opt,
             "scalars": {
                 "step": np.int64(self.step),
                 "last_msg_id": np.int64(self.last_msg_id),
@@ -77,10 +85,12 @@ class TrainerWorker:
         """Restore from a state tree of numpy arrays (a registry pull, or
         a reference worker's ``state_tree()``) or tensors, copied onto
         this worker's device."""
-        self.params = tree_map(lambda a: to_tensor(a, self.device),
-                               tree["params"])
-        self.opt_state = tree_map(lambda a: to_tensor(a, self.device),
-                                  tree["opt"])
+        with trace.span("repro_torch.trainer.load_state",
+                        trace.tree_bytes((tree["params"], tree["opt"]))):
+            self.params = tree_map(lambda a: to_tensor(a, self.device),
+                                   tree["params"])
+            self.opt_state = tree_map(lambda a: to_tensor(a, self.device),
+                                      tree["opt"])
         self.step = int(tree["scalars"]["step"])
         self.last_msg_id = int(tree["scalars"]["last_msg_id"])
         self.n_processed = int(tree["scalars"]["n_processed"])

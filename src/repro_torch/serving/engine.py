@@ -21,6 +21,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.convert import to_tensor
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -114,36 +115,41 @@ class ServingEngine:
         consume their prompt token at its position; other active lanes
         decode their last sampled token; idle lanes re-write position 0 of
         their own lane with token 0 (harmless: they are reset on admit)."""
-        forced = forced or {}
-        tokens = np.zeros((self.num_slots, 1), np.int32)
-        positions = np.zeros((self.num_slots, 1), np.int32)
-        for s in range(self.num_slots):
-            if s in forced:
-                tok, pos = forced[s]
-                tokens[s, 0] = tok
-                positions[s, 0] = pos
-            elif self.active[s]:
-                tokens[s, 0] = self.last_token[s]
-                positions[s, 0] = self.positions[s]
-        ids = torch.from_numpy(np.stack([tokens, positions])).to(self.device)
-        next_tok, self.cache = _decode_all(self.params, self.cfg, self.cache,
-                                           ids[0], ids[1])
-        next_tok = next_tok.cpu().numpy()
-        for s in range(self.num_slots):
-            if s in forced:
-                continue
-            if not self.active[s]:
-                continue
-            tok = int(next_tok[s])
-            rid = self.request_of_slot[s]
-            self.positions[s] += 1
-            self.generated[rid].append(tok)
-            self.last_token[s] = tok
-            self.budget[s] -= 1
-            if self.budget[s] <= 0 or self.positions[s] >= self.max_seq - 1:
-                self._complete(s)
-        self._admit_waiting()
-        return next_tok
+        with trace.span("repro_torch.engine.step"):
+            forced = forced or {}
+            with trace.span("repro_torch.engine.dispatch"):
+                tokens = np.zeros((self.num_slots, 1), np.int32)
+                positions = np.zeros((self.num_slots, 1), np.int32)
+                for s in range(self.num_slots):
+                    if s in forced:
+                        tok, pos = forced[s]
+                        tokens[s, 0] = tok
+                        positions[s, 0] = pos
+                    elif self.active[s]:
+                        tokens[s, 0] = self.last_token[s]
+                        positions[s, 0] = self.positions[s]
+                ids = torch.from_numpy(np.stack([tokens, positions])).to(
+                    self.device)
+                next_tok, self.cache = _decode_all(self.params, self.cfg,
+                                                   self.cache, ids[0], ids[1])
+            with trace.span("repro_torch.engine.sync"):
+                next_tok = next_tok.cpu().numpy()
+            for s in range(self.num_slots):
+                if s in forced:
+                    continue
+                if not self.active[s]:
+                    continue
+                tok = int(next_tok[s])
+                rid = self.request_of_slot[s]
+                self.positions[s] += 1
+                self.generated[rid].append(tok)
+                self.last_token[s] = tok
+                self.budget[s] -= 1
+                if (self.budget[s] <= 0
+                        or self.positions[s] >= self.max_seq - 1):
+                    self._complete(s)
+            self._admit_waiting()
+            return next_tok
 
     def _complete(self, slot: int):
         rid = self.request_of_slot.pop(slot)
@@ -193,8 +199,11 @@ class ServingEngine:
             request[s] = rid
             gen_len[s] = len(toks)
             gen[s, : len(toks)] = toks
+        with trace.span("repro_torch.engine.state_tree",
+                        trace.tree_bytes(self.cache)):
+            cache = tree_map(torch.clone, self.cache)
         return {
-            "cache": tree_map(torch.clone, self.cache),
+            "cache": cache,
             "slots": {
                 "positions": self.positions.copy(),
                 "active": self.active.copy(),
@@ -213,8 +222,10 @@ class ServingEngine:
     def load_state(self, tree):
         """Restore from a state tree (numpy leaves from a registry pull, or
         tensors); the cache is copied onto the engine's device."""
-        self.cache = tree_map(lambda a: to_tensor(a, self.device),
-                              tree["cache"])
+        with trace.span("repro_torch.engine.load_state",
+                        trace.tree_bytes(tree["cache"])):
+            self.cache = tree_map(lambda a: to_tensor(a, self.device),
+                                  tree["cache"])
         slots = tree["slots"]
         self.positions = np.asarray(slots["positions"]).copy()
         self.active = np.asarray(slots["active"]).copy()

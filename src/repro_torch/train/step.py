@@ -22,6 +22,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch import trace
 from repro_torch.models import common
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig, ShapeSpec
@@ -216,9 +217,12 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainStepConfig):
         flat, treedef = flatten(params)
         with torch.enable_grad():
             inputs = [p.detach().requires_grad_() for p in flat]
-            loss, metrics = T.lm_loss(unflatten(treedef, inputs), batch, cfg,
-                                      remat=tcfg.remat, unroll=tcfg.unroll)
-            grads = _like_params(torch.autograd.grad(loss, inputs), flat)
+            with trace.span("repro_torch.train.forward"):
+                loss, metrics = T.lm_loss(unflatten(treedef, inputs), batch,
+                                          cfg, remat=tcfg.remat,
+                                          unroll=tcfg.unroll)
+            with trace.span("repro_torch.train.backward"):
+                grads = _like_params(torch.autograd.grad(loss, inputs), flat)
         return (loss.detach(), {k: m.detach() for k, m in metrics.items()},
                 unflatten(treedef, list(grads)))
 
@@ -250,8 +254,9 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainStepConfig):
         lr = cosine_schedule(step, peak=tcfg.lr_peak,
                              warmup_steps=tcfg.warmup_steps,
                              total_steps=tcfg.total_steps)
-        params, opt_state, opt_metrics = adamw.adamw_update(
-            params, grads, opt_state, tcfg.opt, lr=lr)
+        with trace.span("repro_torch.train.optimizer"):
+            params, opt_state, opt_metrics = adamw.adamw_update(
+                params, grads, opt_state, tcfg.opt, lr=lr)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
