@@ -48,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import hashlib
+import itertools
 import json
 import os
 import threading
@@ -131,8 +132,8 @@ class ChunkStore:
 
 @functools.lru_cache(maxsize=None)
 def _hash_pool() -> ThreadPoolExecutor:
-    # one core left to the caller: a trainer's steps go on beside an
-    # async push
+    # a push's sha256 and a pull's copies into place; one core left to
+    # the caller: a trainer's steps go on beside an async push
     return ThreadPoolExecutor(max_workers=max(1, (os.cpu_count() or 2) - 1),
                               thread_name_prefix="chunk-sha256")
 
@@ -147,6 +148,30 @@ def _chunk_keys(data, cb: int, chunks: List[int]) -> Dict[int, str]:
     if len(chunks) < 2:
         return {c: key(c) for c in chunks}
     return dict(zip(chunks, _hash_pool().map(key, chunks)))
+
+
+def _place(dst: np.ndarray, parts: List) -> None:
+    """Copies ``parts``, a leaf's raw chunks in order, end to end into the
+    bytes of ``dst`` (C-contiguous): one copy a chunk, on the pool when
+    there are two or more (numpy's copy lets go of the GIL), so the
+    destination's first-touch page faults spread over the host's cores
+    too; a single chunk copies inline."""
+    flat = dst.reshape(-1).view(np.uint8)
+    srcs = [np.frombuffer(p, np.uint8) for p in parts]
+    starts = [0, *itertools.accumulate(s.size for s in srcs)]
+    if starts[-1] != flat.size:
+        raise ValueError(f"chunks hold {starts[-1]} bytes; the leaf has "
+                         f"{flat.size}")
+
+    def put(c):
+        np.copyto(flat[starts[c]: starts[c + 1]], srcs[c])
+
+    if len(srcs) < 2:
+        for c in range(len(srcs)):
+            put(c)
+        return
+    with _trace.span("repro_torch.registry.place", flat.size):
+        list(_hash_pool().map(put, range(len(srcs))))
 
 
 def _resolve_dtype(name: str):
@@ -481,7 +506,9 @@ class Registry:
     def pull_image(self, image_id: str,
                    have_chunks: Optional[set] = None
                    ) -> Tuple[Dict[str, Any], int]:
-        """-> (trees of numpy leaves, wire_bytes_pulled).
+        """-> (trees of numpy leaves, wire_bytes_pulled).  Each leaf is a
+        writable array of its own memory (``_place``): writing to it
+        leaves the store as it was.
 
         With ``have_chunks`` (the puller's local chunk cache), only missing
         chunks are charged.  Accounting is per distinct chunk — each chunk
@@ -510,11 +537,11 @@ class Registry:
                                                  charge, memo)
                                  for ci in range(len(entry["chunks"]))]
                     with _trace.span("repro_torch.registry.assemble", nbytes):
-                        data = b"".join(parts)
+                        arr = np.empty(entry["shape"],
+                                       _resolve_dtype(entry["dtype"]))
+                        _place(arr, parts)
                         del parts
-                        arr = np.frombuffer(
-                            data, dtype=_resolve_dtype(entry["dtype"]))
-                        leaves.append(arr.reshape(entry["shape"]).copy())
+                        leaves.append(arr)
                     sp.add(nbytes)
                 trees[name] = _tree.unflatten(spec["treedef"], leaves)
         return trees, pulled

@@ -32,7 +32,10 @@ Names, every one under ``repro_torch.``:
   ``registry.d2h`` (its bytes off its device), ``registry.hash`` (the
   sha256 of its dirty chunks), ``registry.put`` (its chunks into the
   store, the bytes handed over), ``registry.get`` (its chunks read and
-  decoded) and ``registry.assemble`` (joined into one host array).
+  decoded) and ``registry.assemble`` (copied into one host array);
+  ``registry.place`` (a leaf's bytes), inside ``registry.assemble``, is
+  open only for a leaf of two or more chunks, whose copies run on the
+  registry's thread pool.
 """
 from __future__ import annotations
 

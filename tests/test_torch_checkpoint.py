@@ -275,3 +275,136 @@ def test_chunk_keys_on_the_pool_equal_serial_sha256():
             for c in range(20) if c != 3}
     assert registry._chunk_keys(view, cb, sorted(want)) == want
     assert registry._chunk_keys(view, cb, [19]) == {19: want[19]}
+
+
+class _ViewStore:
+    """A chunk store in host memory whose ``get`` hands out read-only
+    views of the blobs it holds, as the benchmark's does: a pulled leaf
+    that aliased a view would alias the store."""
+
+    def __init__(self):
+        self._blobs = {}
+
+    def has(self, key):
+        return key in self._blobs
+
+    def put(self, data, key=None):
+        import hashlib
+
+        key = key or hashlib.sha256(data).hexdigest()
+        new = key not in self._blobs
+        if new:
+            self._blobs[key] = np.frombuffer(data, np.uint8).copy()
+        return key, new
+
+    def get(self, key):
+        return memoryview(self._blobs[key]).toreadonly()
+
+
+def _f32(n, seed=5):
+    return np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+
+
+def _nudge(x):
+    """A few elements of each 8 KiB chunk moved a little (the delta
+    codecs then encode every chunk)."""
+    y = x.copy()
+    y.reshape(-1)[::1024] += 0.25
+    return y
+
+
+# name -> (the pushed tree, the delta's codec or None, its dirty tree)
+_PULL_CASES = {
+    "empty": ({"x": np.zeros((0, 3), np.float32)}, None, None),
+    "under_one_chunk": ({"x": _f32(100)}, None, None),
+    "one_chunk": ({"x": _f32(CHUNK // 4)}, None, None),
+    "chunks_short_last": ({"x": _f32(5000).reshape(50, 100)}, None, None),
+    "bfloat16": ({"x": torch.from_numpy(_f32(7001)).to(torch.bfloat16)},
+                 None, None),
+    "int8": ({"x": np.random.default_rng(6).integers(
+        -128, 128, 20_001).astype(np.int8)}, None, None),
+    "int64": ({"x": np.arange(2500, dtype=np.int64).reshape(5, 500)},
+              None, None),
+    "scalar": ({"s": np.int64(7), "f": np.array(2.5, np.float32)}, None,
+               None),
+    "delta_xor_rle": ({"x": _f32(6000), "y": _f32(3000, 8)}, "xor_rle",
+                      {"x": _nudge(_f32(6000)), "y": _nudge(_f32(3000, 8))}),
+    "delta_int8": ({"x": _f32(6000), "y": _f32(3000, 8)}, "int8",
+                   {"x": _nudge(_f32(6000)), "y": _nudge(_f32(3000, 8))}),
+}
+
+
+def _expected_wire(reg, image_id):
+    """The wire bytes of a cold pull, from the manifests alone: each
+    distinct chunk of the image once, with the chunks its codecs decode
+    against."""
+    wire = {}
+
+    def walk(im, name, li, ci):
+        ch = reg._manifest(im)["trees"][name]["leaves"][li]["chunks"][ci]
+        wire[ch["key"]] = ch["wire"]
+        if ch.get("enc", "none") != "none":
+            walk(ch["pim"], name, li, ci)
+
+    for name, spec in reg._manifest(image_id)["trees"].items():
+        for li, leaf in enumerate(spec["leaves"]):
+            for ci in range(len(leaf["chunks"])):
+                walk(image_id, name, li, ci)
+    return sum(wire.values())
+
+
+@pytest.mark.parametrize("store", ["disk", "memory"])
+@pytest.mark.parametrize("case", sorted(_PULL_CASES))
+def test_pull_places_each_leaf_in_memory_of_its_own(tmp_path, case, store):
+    """A pull gives back the pushed bytes (a lossy delta's decode, chunk
+    by chunk) as writable arrays that own their memory, share none with
+    the store, and leave a second pull and the store unchanged when
+    written to; ``pulled`` is the image's distinct chunks' wire bytes,
+    its codecs' parents included."""
+    from repro_torch.checkpoint.codecs import leaf_raw
+    from repro_torch.checkpoint.registry import _leaf_meta
+
+    tree, codec, dirty = _PULL_CASES[case]
+    reg = TRegistry(str(tmp_path), chunk_bytes=CHUNK)
+    if store == "memory":
+        reg.store = _ViewStore()
+    image_id = reg.push_image({"state": tree}).image_id
+    if codec is not None:
+        rep = reg.push_delta({"state": dirty}, image_id, compression=codec)
+        image_id, tree = rep.image_id, dirty
+        encs = {ch.get("enc") for leaf in _chunk_entries(reg, image_id)
+                for ch in leaf["chunks"]}
+        assert encs == {codec}, encs
+
+    def raw(name, li):
+        """The leaf's bytes as today's pull joined them, chunk by chunk."""
+        leaf = reg._manifest(image_id)["trees"][name]["leaves"][li]
+        return b"".join(bytes(reg._chunk_raw(image_id, name, li, ci))
+                        for ci in range(len(leaf["chunks"])))
+
+    first, pulled = reg.pull_image(image_id)
+    second, _ = reg.pull_image(image_id)
+    assert pulled == _expected_wire(reg, image_id)
+    assert (pulled > 0) == (case != "empty")
+    got, treedef = flatten(first["state"])
+    want, want_def = flatten(tree)
+    assert treedef == want_def
+    views = [np.frombuffer(reg.store.get(k), np.uint8)
+             for k in reg.image_chunks(image_id)]
+    for li, (g, w) in enumerate(zip(got, want)):
+        dtype, shape, nbytes = _leaf_meta(w)
+        assert isinstance(g, np.ndarray)
+        assert (g.dtype.name, g.shape, g.nbytes) == (dtype, shape, nbytes)
+        assert g.flags.owndata and g.flags.writeable and g.flags.c_contiguous
+        assert g.tobytes() == raw("state", li)
+        if codec != "int8":
+            assert g.tobytes() == leaf_raw(w)
+        else:
+            np.testing.assert_allclose(g, w, atol=0.02)
+        assert not any(np.shares_memory(g, v) for v in views)
+    for g in got:
+        g.reshape(-1).view(np.uint8)[:] ^= 0xFF
+    third, _ = reg.pull_image(image_id)
+    for li, (b, c) in enumerate(zip(flatten(second["state"])[0],
+                                    flatten(third["state"])[0])):
+        assert b.tobytes() == c.tobytes() == raw("state", li)

@@ -8,9 +8,10 @@
     thread; a checkpoint's and a restore's bytes are the state's;
   * a push and a pull through a temporary ``Registry`` record each leaf's
     fingerprint, copy, hash, put, get and assembly with the leaf's bytes,
-    the push's and the pull's whole with the image's; a push on a second
-    thread keeps its own parent stack; many threads at once lose no span
-    and no byte;
+    the pool's placement of each leaf of two or more chunks inside its
+    assembly, the push's and the pull's whole with the image's; a push
+    on a second thread keeps its own parent stack; many threads at once
+    lose no span and no byte;
   * under a CPU ``torch.profiler`` profile each span is a range of the
     same name;
   * ``tools/trace_torch_bench.py``: its trace reduction with the port's
@@ -237,6 +238,29 @@ def test_push_and_pull_record_each_phase_with_the_leaf_bytes(tmp_path):
         got_v = (got_v.view(np.int16) if want.dtype == np.int16
                  else got_v)
         assert np.array_equal(np.asarray(got_v), want)
+
+
+def test_pull_places_the_leaves_of_two_or_more_chunks_on_the_pool(tmp_path):
+    """``registry.place`` holds a leaf's bytes inside that leaf's
+    ``registry.assemble``, on the pull's thread, exactly for the leaves
+    of two or more chunks; its counter grows by their bytes."""
+    tree = dict(_state(), two=np.ones(CHUNK // 4 + 1, np.float32))
+    sizes = [trace.tree_bytes(x) for x in leaves(tree)]
+    multi = [n for n in sizes if n > CHUNK]
+    assert 0 < len(multi) < len(sizes)
+    before = trace.counters()["bytes"].get("repro_torch.registry.place", 0)
+    trace.enable()
+    _push_pull(tmp_path, tree)
+    got = _by_name(trace.spans())
+    (pull,) = got["repro_torch.registry.pull"]
+    assembles = got["repro_torch.registry.assemble"]
+    places = got["repro_torch.registry.place"]
+    assert [s.nbytes for s in places] == multi
+    assert [s.parent for s in places] == [a.id for a in assembles
+                                          if a.nbytes > CHUNK]
+    assert all(s.thread == pull.thread for s in places)
+    after = trace.counters()["bytes"]["repro_torch.registry.place"]
+    assert after - before == sum(multi)
 
 
 def test_a_push_on_a_second_thread_keeps_its_own_parent_stack(tmp_path):

@@ -66,7 +66,8 @@ LOAD_STATE = ("repro_torch.engine.load_state",
 PHASES = ("engine.state_tree", "trainer.state_tree", "registry.push",
           "registry.fingerprint", "registry.d2h", "registry.hash",
           "registry.put", "registry.pull", "registry.get",
-          "registry.assemble", "engine.load_state", "trainer.load_state")
+          "registry.assemble", "registry.place", "engine.load_state",
+          "trainer.load_state")
 PUSH_PARTS = ("registry.fingerprint", "registry.d2h", "registry.hash",
               "registry.put")
 BENCH_READERS = ("engine_step_ms", "train_step_ms", "push_gbps",
