@@ -28,6 +28,29 @@ def reader(name: str, bench: Path = BENCH) -> Callable:
     return mod.read
 
 
+def load_model(config: dict, bench: Path = BENCH):
+    """The model that ``config`` runs: the module its ``model`` key names
+    (a path under ``bench/``), or the port's decoder
+    (``harness/decoder.py``, which lists what a model gives) where it
+    names none."""
+    from harness import decoder
+
+    if "model" not in config:
+        return decoder
+    path = (bench / config["model"]).resolve()
+    if bench.resolve() not in path.parents or not path.is_file():
+        raise BenchError(f"{config['name']}: model {config['model']!r} is no "
+                         f"file under {bench}")
+    spec = importlib.util.spec_from_file_location(
+        f"bench_model_{config['name']}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    missing = [n for n in decoder.__all__ if not hasattr(mod, n)]
+    if missing:
+        raise BenchError(f"{config['name']}: model {path} lacks {missing}")
+    return mod
+
+
 def make_cell(files: dict, seed: int, seconds: float, trace: bool, device):
     kind = files["traffic"]["kind"]
     if kind == "serve":
@@ -36,8 +59,9 @@ def make_cell(files: dict, seed: int, seconds: float, trace: bool, device):
         from harness.training import TrainCell as Cell
     else:
         raise BenchError(f"traffic kind {kind!r}")
+    model = load_model(files["config"], files["root"] / "bench")
     return Cell(files["config"], files["traffic"], seed, seconds, trace,
-                device, files["cell"]["name"])
+                device, files["cell"]["name"], model)
 
 
 def execute(files: dict, seed: int, seconds: float, trace: bool, device,

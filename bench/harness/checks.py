@@ -28,35 +28,30 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from harness.weights import draw_row, layout
-from reference import model as ref
+from harness.weights import draw_params, draw_row, flat_leaves
 
 Checks = Dict[str, Tuple[float, float]]
 
 
-def _reference_weights(run: dict, seed: int, device, stacked_leaves: bool):
-    """The reference's own draw of the weights: the top leaves, and either
-    a function of the layer (one layer drawn at a time) or every group
-    leaf stacked (for training)."""
-    lay = layout(run)
-    top = {p: draw_row(seed, p, -1, s, sc, device)
-           for p, (s, sc, st) in lay.items() if not st}
-    groups = {p: v for p, v in lay.items() if v[2]}
+def _reference_weights(run: dict, seed: int, device, stacked_leaves: bool,
+                       model=None):
+    """The reference's own draw of the weights in the layout of ``model``
+    (the port's decoder where None): every leaf by its path, stacked (for
+    training), or the model's view of them, each stacked leaf's row drawn
+    when the reference asks for it (one layer at a time)."""
+    if model is None:
+        from harness import decoder as model
+    lay = model.layout(run)
     if stacked_leaves:
-        G = run["num_layers"]
-        full = dict(top)
-        for p, (s, sc, _) in groups.items():
-            t = torch.empty((G,) + s, dtype=torch.float32, device=device)
-            for g in range(G):
-                draw_row(seed, p, g, s, sc, device, out=t[g])
-            full[p] = t
-        return full
+        # in the layout's order, which the reference's sums over leaves take
+        flat = flat_leaves(draw_params(run, seed, device, lay))
+        return {p: flat[p] for p in lay}
 
-    def layer(g: int) -> Dict[str, torch.Tensor]:
-        return {p[len("groups/b0/"):]: draw_row(seed, p, g, s, sc, device)
-                for p, (s, sc, _) in groups.items()}
+    def get(path: str, g: int) -> torch.Tensor:
+        s, sc, _ = lay[path]
+        return draw_row(seed, path, g, s, sc, device)
 
-    return top, layer
+    return model.view(run, get)
 
 
 def _free(cell) -> None:
@@ -79,16 +74,15 @@ def serve_checks(cell, limits: dict, control: bool = False):
             m.state_equal is False for m in cell.rec.migrations)), 0.0),
         "requests_not_exactly_once": (float(cell.exactly_once()), 0.0),
     }
-    device = cell.device
+    device, model = cell.device, cell.model
     _free(cell)
     if seqs:
-        top, layer = _reference_weights(cell.run, cell.seed, device, False)
-        gaps = ref.token_gaps(top, layer, seqs, first, cell.run)
+        weights = _reference_weights(cell.run, cell.seed, device, False, model)
+        gaps = model.token_gaps(weights, seqs, first, cell.run)
         checks["served_logit_gap"] = (max(gaps), limits["served_logit_gap"])
         ctrl = None
         if control:
-            cg = ref.token_gaps(top, layer, seqs, first, cell.run,
-                                control=ref.FP8)
+            cg = model.token_gaps(weights, seqs, first, cell.run, control=True)
             ctrl = {"served_logit_gap": (max(cg), limits["served_logit_gap"])}
     else:
         gaps, ctrl = [], None
@@ -107,20 +101,21 @@ def train_checks(cell, limits: dict, control: bool = False):
             m.state_equal is False for m in cell.rec.migrations)), 0.0),
         "batches_not_exactly_once": (float(cell.exactly_once()), 0.0),
     }
-    device = cell.device
+    device, model = cell.device, cell.model
     _free(cell)
-    weights = _reference_weights(cell.run, cell.seed, device, True)
+    weights = _reference_weights(cell.run, cell.seed, device, True, model)
     batches = [{k: torch.as_tensor(v, device=device)
                 for k, v in cell.batches.batch(i).items()} for i in range(n)]
-    got = ref.train_readings(weights, batches, cell.run, opt)
+    got = model.train_readings(weights, batches, cell.run, opt)
     del weights
     gaps = train_gaps(prog, got, limits)
     checks.update({k: v for k, v in gaps.items() if k in limits})
     cell.readings_only = {k: v[0] for k, v in gaps.items() if k not in limits}
     ctrl = None
     if control:
-        weights = _reference_weights(cell.run, cell.seed, device, True)
-        low = ref.train_readings(weights, batches, cell.run, opt, ref.FP8)
+        weights = _reference_weights(cell.run, cell.seed, device, True, model)
+        low = model.train_readings(weights, batches, cell.run, opt,
+                                   control=True)
         del weights
         ctrl = train_gaps(low, got, limits)
     cell.detail = {who: {k: v for k, v in r.items() if k != "grad"}

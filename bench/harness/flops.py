@@ -78,17 +78,21 @@ def flash_forward_bound_s(run: dict, batch: int, seq: int,
 
 def window_mfu(rec) -> "float | None":
     """The window's model FLOPs over the bf16 peak, in %: served tokens
-    at their positions, or trained batches."""
+    at their positions, or trained batches, as the configuration's model
+    counts them (this module's counts where the record names none)."""
     run = rec.run
+    counts = rec.model
+    serve = counts.serve_token_flops if counts else serve_token_flops
+    train = counts.train_batch_flops if counts else train_batch_flops
     if rec.tokens_per_batch:
         t = rec.traffic
-        total = len(rec.trained) * train_batch_flops(run, t["batch"], t["seq"])
+        total = len(rec.trained) * train(run, t["batch"], t["seq"])
     else:
         total = 0
         for r, toks in rec.served.items():
             # served token i comes from the step at position prompt + i - 1
             p = rec.prompt_len[r] - 1
-            total += sum(serve_token_flops(run, p + i)
+            total += sum(serve(run, p + i)
                          for i, (t, _) in enumerate(toks)
                          if 0.0 <= t <= rec.window_s)
     if not total:

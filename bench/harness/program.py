@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import enum
 import tempfile
 
 import torch
@@ -24,26 +25,38 @@ from repro_torch.train import step as steplib
 
 from store import MemoryChunkStore
 
-# the ModelConfig fields a configuration file's ``run`` block may set
-FIELDS = ("num_layers", "d_model", "num_heads", "num_kv_heads", "head_dim",
-          "d_ff", "vocab_size", "rope_fraction", "rope_theta", "norm_eps",
-          "tie_embeddings", "num_experts", "num_experts_per_tok",
-          "capacity_factor", "router_aux_coef", "dtype")
-
 __all__ = ["CompletionLedger", "CutoffController", "ServingEngine",
            "ServingWorker", "model_config", "registry", "trainer"]
 
 
 def model_config(config: dict):
-    """The port's ModelConfig of ``config["port_arch"]`` with every size of
-    the file's ``run`` block: what the file says is what runs."""
+    """The port's ModelConfig of ``config["port_arch"]`` with every key of
+    the file's ``run`` block, each the name of one of its fields (a key
+    that names none raises): what the file says is what runs."""
     run = config["run"]
-    cfg = dataclasses.replace(get_config(config["port_arch"]),
-                              **{k: run[k] for k in FIELDS if k in run})
+    base = get_config(config["port_arch"])
+    unknown = sorted(set(run) - {f.name for f in dataclasses.fields(base)})
+    if unknown:
+        raise ValueError(f"{config['name']}: run keys {unknown} name no field "
+                         f"of the port's ModelConfig")
+    cfg = dataclasses.replace(base, **{k: _as_field(getattr(base, k), v)
+                                       for k, v in run.items()})
     if cfg.padded_vocab != -(-run["vocab_size"] // 2048) * 2048:
         raise ValueError(f"{cfg.name}: the port pads the vocabulary to "
                          f"{cfg.padded_vocab} rows")
     return cfg
+
+
+def _as_field(default, value):
+    """A JSON value in the type of the field's ``default``: a list as a
+    tuple (``pattern``, ``mrope_sections``), a name as the field's enum (a
+    block kind)."""
+    if isinstance(value, list):
+        inner = default[0] if isinstance(default, tuple) and default else None
+        return tuple(_as_field(inner, v) for v in value)
+    if isinstance(default, enum.Enum):
+        return type(default)(value)
+    return value
 
 
 def registry(chunk_bytes=None) -> Registry:

@@ -86,6 +86,8 @@ class Record:
         default_factory=dict)
     attempted: int = 0
     failed: int = 0
+    # the configuration's model (harness/decoder.py where None): its counts
+    model: Optional[object] = None
 
     def done_migrations(self) -> List[Migration]:
         return [m for m in self.migrations if m.t_switch is not None

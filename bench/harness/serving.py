@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from harness import program
+from harness.cell import load_model
 from harness.record import Clock, Migration, Record, Step
 from harness.trace import Tracer, span
 from harness.traffic import initial_sessions
@@ -83,13 +84,16 @@ class Replica:
 
 class ServeCell:
     def __init__(self, config: dict, traffic: dict, seed: int,
-                 seconds: float, trace: bool, device, workload: str = ""):
+                 seconds: float, trace: bool, device, workload: str = "",
+                 model=None):
         self.config, self.traffic, self.seed = config, traffic, seed
         self.run, self.window_s = config["run"], float(seconds)
         self.device = torch.device(device)
         self.cfg = program.model_config(config)
+        self.model = load_model(config) if model is None else model
         self.clock = Clock()
-        self.rec = Record(workload, self.run, traffic, self.window_s)
+        self.rec = Record(workload, self.run, traffic, self.window_s,
+                          model=self.model)
         self.ledger = program.CompletionLedger(self.clock)
         tr = traffic["trace"]
         self.tracer = Tracer(trace, tr["at_s"], tr["seconds"], self.clock)
@@ -102,7 +106,8 @@ class ServeCell:
 
     # ------------------------------------------------------------ set-up
     def setup(self) -> None:
-        self.params = draw_params(self.run, self.seed, self.device)
+        self.params = draw_params(self.run, self.seed, self.device,
+                                  self.model.layout(self.run))
         self.primary = Replica(self, "replica-0", self.params)
         eng = self.primary.engine
         for _ in range(int(self.traffic["warmup_steps"])):

@@ -19,10 +19,11 @@ from typing import Dict, List, Optional
 import torch
 
 from harness import program
+from harness.cell import load_model
 from harness.record import Clock, Migration, Record, Step
 from harness.trace import Tracer, span
 from harness.traffic import TrainBatches
-from harness.weights import draw_params, draw_row, flat_leaves, layout
+from harness.weights import draw_params, draw_row, flat_leaves, stacked_rows
 
 
 class Msg:
@@ -34,13 +35,16 @@ class Msg:
 
 class TrainCell:
     def __init__(self, config: dict, traffic: dict, seed: int,
-                 seconds: float, trace: bool, device, workload: str = ""):
+                 seconds: float, trace: bool, device, workload: str = "",
+                 model=None):
         self.config, self.traffic, self.seed = config, traffic, seed
         self.run, self.window_s = config["run"], float(seconds)
         self.device = torch.device(device)
         self.cfg = program.model_config(config)
+        self.model = load_model(config) if model is None else model
         self.clock = Clock()
-        self.rec = Record(workload, self.run, traffic, self.window_s)
+        self.rec = Record(workload, self.run, traffic, self.window_s,
+                          model=self.model)
         tr = traffic["trace"]
         self.tracer = Tracer(trace, tr["at_s"], tr["seconds"], self.clock)
         self.batches = TrainBatches(traffic, self.run["vocab_size"], seed)
@@ -51,7 +55,8 @@ class TrainCell:
 
     # ------------------------------------------------------------ set-up
     def setup(self) -> None:
-        params = draw_params(self.run, self.seed, self.device)
+        params = draw_params(self.run, self.seed, self.device,
+                             self.model.layout(self.run))
         self.worker = program.trainer(self.cfg, self.traffic, params,
                                       self.batches, "trainer-0", self.device)
         b1 = self.traffic["optimizer"]["b1"]
@@ -84,9 +89,9 @@ class TrainCell:
         """Each leaf's distance from the weights drawn at the start."""
         now = flat_leaves(self.worker.params)
         out = {}
-        for path, (shape, scale, stacked) in layout(self.run).items():
+        for path, (shape, scale, rows) in self.model.layout(self.run).items():
             p = now[path]
-            if stacked:
+            if stacked_rows(self.run, rows):
                 sq = 0.0
                 for g in range(p.shape[0]):
                     w0 = draw_row(self.seed, path, g, shape, scale, p.device)

@@ -74,13 +74,22 @@ def draw_row(seed: int, path: str, row: int, shape, scale: float,
     return out.mul_(scale).clamp_(-2.0 * scale, 2.0 * scale)
 
 
-def draw_params(run: dict, seed: int, device) -> dict:
-    """The whole params tree for the program: group leaves stacked over a
-    leading layers axis, as the port's ``init_lm`` lays them out."""
-    G = run["num_layers"]
+def stacked_rows(run: dict, rows) -> int:
+    """The rows of a layout entry's leaf: 0 for one leaf that is not
+    stacked (False), ``num_layers`` for True, else the number given."""
+    return run["num_layers"] if rows is True else int(rows)
+
+
+def draw_params(run: dict, seed: int, device, lay=None) -> dict:
+    """The whole params tree for the program from ``lay`` (a model's
+    layout; this module's ``layout`` where None): stacked leaves with
+    their rows on a leading axis, as the port's ``init_lm`` lays them
+    out."""
     tree: dict = {}
-    for path, (shape, scale, stacked) in layout(run).items():
-        if stacked:
+    lay = layout(run) if lay is None else lay
+    for path, (shape, scale, rows) in lay.items():
+        G = stacked_rows(run, rows)
+        if G:
             t = torch.empty((G,) + shape, dtype=torch.float32, device=device)
             for g in range(G):
                 draw_row(seed, path, g, shape, scale, device, out=t[g])

@@ -15,12 +15,16 @@ off (the reference), or its operands rounded to fp8 e4m3 and their
 gradients to fp8 e5m2, with a scale per tensor (the control: the next
 precision below the bf16 the configuration computes in).  A dimension is
 never cut.
+
+A configuration's own model (``harness/decoder.py`` says how one is named)
+may reuse these pieces: ``hidden``, ``loss``, ``token_gaps`` and
+``train_readings`` take its own ``block`` (one layer) and weight view.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
@@ -194,12 +198,28 @@ def head(table, x, run: dict, prec: Precision):
 
 
 LayerFn = Callable[[int], Dict[str, torch.Tensor]]
+GROUP = "groups/b0/"
+
+
+def groups_view(paths: Iterable[str], get: Callable[[str, int], torch.Tensor]):
+    """The decoder's weights as ``hidden`` takes them, from the program's
+    tree: (the leaves outside the layer group, a function of the layer
+    giving its group leaves by their path inside the group).  ``get(path,
+    g)`` is a leaf (g -1) or layer g's row of a stacked leaf."""
+    paths = list(paths)
+    top = {p: get(p, -1) for p in paths if not p.startswith(GROUP)}
+
+    def layer(g: int) -> Dict[str, torch.Tensor]:
+        return {p[len(GROUP):]: get(p, g) for p in paths if p.startswith(GROUP)}
+
+    return top, layer
 
 
 def hidden(top: Dict[str, torch.Tensor], layer: LayerFn, tokens, run: dict,
-           prec: Precision = F32):
+           prec: Precision = F32, block=block):
     """tokens [B,S] -> (final normed hidden [B,S,D], summed aux loss),
-    taking each layer's weights from ``layer(g)`` in turn."""
+    taking each layer's weights from ``layer(g)`` in turn through
+    ``block`` (a model of its own may pass its own layer)."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = embed(top["embed/table"], tokens, run)
@@ -214,10 +234,11 @@ def head_table(top: Dict[str, torch.Tensor]):
     return top["unembed"] if "unembed" in top else top["embed/table"]
 
 
-def loss(top, layer: LayerFn, batch, run: dict, prec: Precision = F32):
+def loss(top, layer: LayerFn, batch, run: dict, prec: Precision = F32,
+         block=block):
     """Next-token cross-entropy over the padded vocabulary plus the router's
     aux loss times ``router_aux_coef``."""
-    x, aux = hidden(top, layer, batch["tokens"], run, prec)
+    x, aux = hidden(top, layer, batch["tokens"], run, prec, block)
     logits = head(head_table(top), x, run, prec)
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
@@ -259,24 +280,29 @@ def adamw(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
 
 
 def train_readings(weights: Dict[str, torch.Tensor], batches: List[dict],
-                   run: dict, opt: dict, prec: Precision = F32) -> dict:
-    """Run len(batches) steps from ``weights`` (path -> float32 tensor, the
-    group leaves stacked over layers; updated in place).  -> each step's
-    loss, the first step's clipped gradient (``grad``) and its norm per
-    leaf, and each leaf's change norm after the last step."""
+                   run: dict, opt: dict, prec: Precision = F32, view=None,
+                   block=block) -> dict:
+    """Run len(batches) steps from ``weights`` (path -> float32 tensor, a
+    stacked leaf with its layers on the leading axis; updated in place),
+    seen through ``view(run, get)`` (``groups_view`` where None).
+    -> each step's loss, the first step's clipped gradient (``grad``) and
+    its norm per leaf, and each leaf's change norm after the last step."""
     start = {k: w.detach().clone() for k, w in weights.items()}
     state: dict = {"count": 0, "m": {}, "v": {}}
     losses, gnorms, first = [], None, None
     for step, batch in enumerate(batches):
         leaves = {k: w.detach().requires_grad_() for k, w in weights.items()}
-        top = {k: t for k, t in leaves.items() if not k.startswith("groups/")}
 
-        def layer(g, leaves=leaves):
-            return {k[len("groups/b0/"):]: t[g] for k, t in leaves.items()
-                    if k.startswith("groups/")}
+        def get(path, g, leaves=leaves):
+            return leaves[path] if g < 0 else leaves[path][g]
 
-        value = loss(top, layer, batch, run, prec)
-        grads = torch.autograd.grad(value, list(leaves.values()))
+        top, layer = (view(run, get) if view is not None
+                      else groups_view(leaves, get))
+        value = loss(top, layer, batch, run, prec, block)
+        # a leaf the model never reads has the gradient 0
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(
+            leaves.values(), torch.autograd.grad(value, list(leaves.values()),
+                                                 allow_unused=True))]
         losses.append(float(value.detach()))
         clipped = adamw(weights, dict(zip(leaves, grads)), state, step, opt)
         if gnorms is None:
@@ -290,7 +316,8 @@ def train_readings(weights: Dict[str, torch.Tensor], batches: List[dict],
 
 def token_gaps(top, layer: LayerFn, seqs: List[List[int]],
                first: List[int], run: dict, prec: Precision = F32,
-               control: Optional[Precision] = None) -> List[float]:
+               control: Optional[Precision] = None,
+               block=block) -> List[float]:
     """For each sequence (prompt + served tokens), the gap of every served
     token (positions ``first[i]`` onward) below the reference's best logit
     at its position.  With ``control``, the gap under the reference of the
@@ -302,9 +329,10 @@ def token_gaps(top, layer: LayerFn, seqs: List[List[int]],
         tokens[i, :len(s)] = torch.tensor(s, dtype=torch.long)
     inputs = tokens[:, :-1]
     with torch.no_grad():
-        ref = _served_logits(top, layer, inputs, first, seqs, run, F32)
+        ref = _served_logits(top, layer, inputs, first, seqs, run, F32, block)
         ctrl = (None if control is None else
-                _served_logits(top, layer, inputs, first, seqs, run, control))
+                _served_logits(top, layer, inputs, first, seqs, run, control,
+                               block))
     gaps = []
     for i, s in enumerate(seqs):
         for j, pos in enumerate(range(first[i] - 1, len(s) - 1)):
@@ -315,9 +343,9 @@ def token_gaps(top, layer: LayerFn, seqs: List[List[int]],
     return gaps
 
 
-def _served_logits(top, layer, inputs, first, seqs, run, prec):
+def _served_logits(top, layer, inputs, first, seqs, run, prec, block):
     """The logits at the positions that served a token, a row each."""
-    x, _ = hidden(top, layer, inputs, run, prec)
+    x, _ = hidden(top, layer, inputs, run, prec, block)
     table = head_table(top)
     return [head(table, x[i, first[i] - 1:len(s) - 1], run, prec)
             for i, s in enumerate(seqs)]

@@ -14,7 +14,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from smoke import SECONDS, smoke_files
+from smoke import SECONDS, run_answers_for_its_own_imports, smoke_files  # noqa: F401
 
 from faults import FAULTS
 from harness.cell import execute

@@ -12,10 +12,11 @@ from types import SimpleNamespace
 
 import pytest
 
-from smoke import BENCH, SECONDS, smoke_files
+from smoke import (BENCH, SECONDS, run_answers_for_its_own_imports,  # noqa: F401
+                   smoke_files)
 
-from harness import flops
-from harness.cell import execute, reader
+from harness import flops, program
+from harness.cell import execute, load_model, reader
 from harness.common import cell_files
 from harness.record import Migration, Record, Step
 from harness.trace import reduce_events
@@ -62,6 +63,64 @@ def test_a_cell_added_by_files_alone_is_found(tmp_path):
     assert result["correct"]
     rec = Record("tiny-chat", {}, {}, 1.0, served={1: [(0.1, 3)], 2: []})
     assert reader("served_requests", root / "bench")(rec) == 2.0
+
+
+SHARED_LINE = "    y = y + shared(W, h, prec)  # the shared expert\n"
+
+
+def _add_shared_expert_configuration(root: Path, fault: bool) -> None:
+    """A configuration with a model of its own, added by files alone:
+    granite's sizes with ``shared_expert`` (outside the default decoder),
+    its model module, and a serving and a training cell over today's
+    traffic.  With ``fault`` the module's reference leaves the shared
+    expert out."""
+    text = (BENCH / "tests/shared_expert_model.py").read_text()
+    if fault:
+        assert SHARED_LINE in text
+        text = text.replace(SHARED_LINE, "")
+    (root / "bench/models").mkdir()
+    (root / "bench/models/tiny_moe_shared.py").write_text(text)
+    run = dict(cell_files("granite-train-statefulset")["config"]["run"],
+               shared_expert=True)
+    # capacity for every pick: the port routes a served prompt by prefill
+    # chunk and then a token a step, the reference the whole sequence
+    (root / "bench/configs/tiny_moe_shared.json").write_text(json.dumps(
+        {"name": "tiny_moe_shared", "port_arch": "granite_moe_1b_a400m",
+         "model": "models/tiny_moe_shared.py", "run": run,
+         "smoke": {"capacity_factor": 4.0}}))
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": "tiny_moe_shared", "source": "x",
+                            "file": "bench/configs/tiny_moe_shared.json",
+                            "reduced": [], "why": "x"})
+    for name, traffic in (("tiny-shared-chat", "longctx_cutoff"),
+                          ("tiny-shared-train", "train_statefulset")):
+        spec["workloads"].append({"name": name, "config": "tiny_moe_shared",
+                                  "traffic": traffic, "chips": 1, "why": "x"})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+
+
+@pytest.mark.parametrize("fault", [False, True])
+@pytest.mark.parametrize("workload,number", [
+    ("tiny-shared-chat", "served_logit_gap"),
+    ("tiny-shared-train", "loss_gap")])
+def test_a_configuration_added_with_its_own_model(tmp_path, workload, number,
+                                                  fault):
+    """The harness draws, runs and judges a cell with the file's model: the
+    port builds the shared expert the run block asks for, and a reference
+    that leaves it out is not correct."""
+    root = _checkout(tmp_path)
+    _add_shared_expert_configuration(root, fault)
+    files = smoke_files(workload, root)
+    run = files["config"]["run"]
+    assert run["shared_expert"] and run["capacity_factor"] == 4.0
+    assert run["d_model"] == 64          # the model module's SMOKE
+    model = load_model(files["config"], root / "bench")
+    assert "groups/b0/moe/shared/w_up" in model.layout(run)
+    assert program.model_config(files["config"]).shared_expert
+    result = execute(files, 2 ** 31 + 7, SECONDS, False, "cpu")
+    assert result["correct"] is not fault, result["checks"]
+    v = result["checks"][number]
+    assert (v["value"] > v["limit"]) is fault
 
 
 def _served_record(stall_s: float, n: int = 100) -> Record:

@@ -7,10 +7,15 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import types
 
-from smoke import BENCH
+import pytest
 
-from harness.common import FORBIDDEN, forbidden_loaded
+from smoke import (BENCH, run_answers_for_its_own_imports,  # noqa: F401
+                   smoke_files)
+
+from harness.cell import execute
+from harness.common import FORBIDDEN, BenchError, forbidden_loaded
 
 PROBE = r"""
 import json, sys
@@ -44,3 +49,20 @@ def test_no_cell_loads_jax_or_the_jax_package():
     loaded = json.loads(p.stdout.strip().splitlines()[-1])
     assert "repro_torch" in loaded and "harness" in loaded
     assert not set(loaded) & set(FORBIDDEN), sorted(set(loaded) & set(FORBIDDEN))
+
+
+def test_a_run_that_loads_the_jax_package_gives_no_result(monkeypatch):
+    """In the test process too (``smoke.run_answers_for_its_own_imports``),
+    a module of the JAX package that the run itself loads refuses it."""
+    from harness.serving import ServeCell
+
+    window = ServeCell.window
+
+    def loading(self):
+        window(self)
+        monkeypatch.setitem(sys.modules, "repro._bench_probe",
+                            types.ModuleType("repro._bench_probe"))
+
+    monkeypatch.setattr(ServeCell, "window", loading)
+    with pytest.raises(BenchError, match="repro._bench_probe"):
+        execute(smoke_files("glm-longctx-cutoff"), 5, 1.0, False, "cpu")
